@@ -1,14 +1,17 @@
-"""Benchmark of the port: photometric passes per second on one GPU.
+"""Benchmark of the port: photometric and geometric passes per second on one
+GPU.
 
     python -m acmmp_spherical_torch.bench
 
-The counterpart of the photometric section of the repository's ``bench.py``:
-one full photometric PatchMatch pass (random init, 3 iterations of black/red
-propagation with view selection and refinement, depth extraction, median
-filter) on the CubeRoom scene at 1024x768 with 8 source views, on the
-rectified kernel path.  Prints one JSON line with the same keys
-(``metric``, ``value``, ``unit``, ``vs_baseline``, ``compile_s``); the
-geometric and spherical sections are not ported yet and report null.
+The counterpart of the pinhole sections of the repository's ``bench.py`` on
+the CubeRoom scene at 1024x768 with 8 source views, on the rectified kernel
+path: one full photometric PatchMatch pass (random init, 3 iterations of
+black/red propagation with view selection and refinement, depth extraction,
+median filter), and one geometric-consistency pass (2 iterations) seeded
+from the photometric result, with every source view's own photometric pass
+(keys 1000 + i) as its source depths.  Prints one JSON line with the same
+keys (``metric``, ``value``, ``unit``, ``vs_baseline``, ``geom_value``,
+``compile_s``); the spherical sections are not ported yet and report null.
 Needs a CUDA device; there is no CPU fallback.
 """
 
@@ -22,8 +25,8 @@ import time
 import numpy as np
 import torch
 
-from acmmp_spherical_tpu.config import PatchMatchParams
-from acmmp_spherical_torch.core.camera import stack_cameras
+from acmmp_spherical_torch.config import PatchMatchParams
+from acmmp_spherical_torch.core.camera import camera_index, stack_cameras
 from acmmp_spherical_torch.ops import rectify as RT
 from acmmp_spherical_torch.ops.propagate import PatchMatchInputs
 from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch
@@ -34,15 +37,21 @@ from acmmp_spherical_torch.utils.synthetic import (
 BASELINE_PASSES_PER_S = 1.6  # analytic GTX 1080 Ti anchor (BASELINE.md)
 
 
+BENCH_SCENE = dict(width=1024, height=768, n_src=8, focal=921.6, radius=0.25)
+GOLDEN_SCENE = dict(width=96, height=64, n_src=3, focal=80.0, radius=0.35)
+GOLDEN_KEY = 2333
+
+
 def make_problem(width: int, height: int, n_src: int, device, *,
                  focal: float, radius: float):
     """A CubeRoom ring problem on the rectified path (reference bench.py
     settings: host mirrors for the compute grid, live tiles, init window,
     warp window and the attribution gate; both bf16 packs off).
-    Returns (inputs, params, ground-truth depths (V, H, W) numpy)."""
+    Returns (inputs, params, ground-truth depths (V, H, W) and world
+    normals (V, H, W, 3), numpy)."""
     cams = make_ring_of_cameras(1 + n_src, width=width, height=height,
                                 focal=focal, radius=radius, device=device)
-    images, depths, _ = render_scene(cams, CubeRoom(), width, height)
+    images, depths, normals = render_scene(cams, CubeRoom(), width, height)
     src = stack_cameras(cams[1:])
     rhw = RT.rect_shape(height, width)
     if not RT.host_rectifiable(cams[0], src, rhw):
@@ -62,18 +71,65 @@ def make_problem(width: int, height: int, n_src: int, device, *,
         ref_image=imgs[0], src_images=imgs[1:], ref_cam=cams[0], src_cams=src,
         src_valid=torch.ones(n_src, dtype=torch.bool, device=device),
         depth_range=cams[0].depth_range)
-    return inputs, params, depths
+    return inputs, params, depths, normals
+
+
+def golden_geom_fields(depths, normals):
+    """numpy inputs of the golden geometric pass
+    (tests/fixtures/golden_geom_pass_stats_rect.json) from the rendered
+    depths (V, H, W) and world normals (V, H, W, 3): source depths
+    GT x (1 + 0.01 cos(i)), seed depth GT x (1 + 0.01 sin(i)), seed normals
+    GT, with i the flat pixel index of each map.  Returns (src_depths,
+    seed_depth, seed_normal_world), float32."""
+    H, W = depths.shape[1:]
+    i = np.arange(H * W, dtype=np.float64).reshape(H, W)
+    return ((depths[1:] * (1.0 + 0.01 * np.cos(i))).astype(np.float32),
+            (depths[0] * (1.0 + 0.01 * np.sin(i))).astype(np.float32),
+            normals[0].astype(np.float32))
+
+
+def golden_geom_problem(device):
+    """The 96x64x3src golden ring set up for its geometric pass (key
+    ``GOLDEN_KEY``).  Returns (inputs with src_depths, geom params, seed
+    keyword arguments of run_patchmatch, ground-truth depths)."""
+    inputs, params, depths, normals = make_problem(**GOLDEN_SCENE,
+                                                   device=device)
+    src, seed_d, seed_n = golden_geom_fields(depths, normals)
+    t = lambda a: torch.as_tensor(a, device=device)
+    inputs = dataclasses.replace(inputs, src_depths=t(src))
+    seeds = dict(seed_normal_world=t(seed_n), seed_depth=t(seed_d))
+    return inputs, params.with_geom(multi_geometry=False), seeds, depths
+
+
+def source_depths(inputs: PatchMatchInputs, params, key_base: int = 1000):
+    """(S, H, W): each source view's own photometric pass (key
+    ``key_base + i`` for view i, every other view of the scene as its
+    sources), the geometric pass's source depths (the reference exchanges
+    the previous pass's depth maps, ACMMP.cpp:653-678)."""
+    S = inputs.src_images.shape[0]
+    cams = [inputs.ref_cam] + [camera_index(inputs.src_cams, j)
+                               for j in range(S)]
+    imgs = torch.cat([inputs.ref_image[None], inputs.src_images])
+    depths = []
+    for i in range(1, S + 1):
+        others = [j for j in range(S + 1) if j != i]
+        view = PatchMatchInputs(
+            ref_image=imgs[i], src_images=imgs[others], ref_cam=cams[i],
+            src_cams=stack_cameras([cams[j] for j in others]),
+            src_valid=inputs.src_valid, depth_range=cams[i].depth_range)
+        depths.append(run_patchmatch(view, params, key_base + i)[0])
+    return torch.stack(depths)
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("the port's bench needs a CUDA device")
-    W, H, n_src, reps = 1024, 768, 8, 3
+    W, H, n_src, reps = (BENCH_SCENE["width"], BENCH_SCENE["height"],
+                         BENCH_SCENE["n_src"], 3)
     dev = torch.device("cuda", 0)
     print(f"[bench] device: {torch.cuda.get_device_name(0)}", file=sys.stderr)
     t0 = time.perf_counter()
-    inputs, params, gt = make_problem(W, H, n_src, dev, focal=0.9 * W,
-                                      radius=0.25)
+    inputs, params, gt, _ = make_problem(**BENCH_SCENE, device=dev)
     print(f"[bench] scene setup {time.perf_counter() - t0:.1f}s; "
           f"comp_hw={params.rect_comp_hw} live_n={params.rect_live_n} "
           f"init_win={params.rect_init_win} warp_hw={params.rect_warp_hw}",
@@ -96,12 +152,37 @@ def main() -> None:
     print(f"[bench] pass times: {['%.3f' % t for t in times]}; "
           f"median rel depth err {np.median(rel):.4f}", file=sys.stderr)
     value = 1.0 / min(times)
+
+    # geometric pass (reference main.cpp:436-446), seeded from the last
+    # photometric pass (key 3), as root bench.py:194-248
+    t0 = time.perf_counter()
+    geom_inputs = dataclasses.replace(inputs,
+                                      src_depths=source_depths(inputs, params))
+    torch.cuda.synchronize()
+    print(f"[bench] per-view photometric seeds: "
+          f"{time.perf_counter() - t0:.1f}s for {n_src} views", file=sys.stderr)
+    geom_params = params.with_geom(multi_geometry=False)
+    seed = dict(seed_normal_world=out[1], seed_depth=out[0])
+    t0 = time.perf_counter()
+    run_patchmatch(geom_inputs, geom_params, 100, **seed)
+    torch.cuda.synchronize()
+    compile_s["geom"] = round(time.perf_counter() - t0, 1)
+    gtimes = []
+    for r in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gout = run_patchmatch(geom_inputs, geom_params, 101 + r, **seed)
+        torch.cuda.synchronize()
+        gtimes.append(time.perf_counter() - t0)
+    grel = np.abs(gout[0].cpu().numpy()[8:-8, 8:-8] - g) / g
+    print(f"[bench] geom pass times: {['%.3f' % t for t in gtimes]}; "
+          f"median rel depth err {np.median(grel):.4f}", file=sys.stderr)
     print(json.dumps({
         "metric": "depth_maps_per_s_per_chip",
         "value": round(value, 4),
         "unit": f"{W}x{H}x{n_src}src photometric passes/s",
         "vs_baseline": round(value / BASELINE_PASSES_PER_S, 4),
-        "geom_value": None,
+        "geom_value": round(1.0 / min(gtimes), 4),
         "geom_unit": f"{W}x{H}x{n_src}src geometric passes/s",
         "sphere_value": None,
         "sphere_unit": "1024x512x6src spherical photometric passes/s",

@@ -46,7 +46,7 @@ Cameras = Camera
 
 def make_camera(R, t, *, model: str = PINHOLE, K=None, sphere_params=None,
                 width: int = 0, height: int = 0, depth_min: float = 0.0,
-                depth_max: float = 1.0, device="cpu") -> Camera:
+                depth_max: float = 1.0, device="cuda") -> Camera:
     if model != PINHOLE:
         raise NotImplementedError(
             "SPHERE cameras arrive with the sphere slice (ROADMAP slice 4)")

@@ -2,7 +2,8 @@
 // rectified source frames, on the compacted live (8, 128) tiles.
 //
 // Replaces: acmmp_spherical_tpu/ops/pallas/ncc_rect.py::run_rect_kernel
-// (kernel _rect_kernel, photometric variant, rect_tap_pack=False).  Per
+// (kernel _rect_kernel, photometric and with_geom variants,
+// rect_tap_pack=False).  Per
 // tile and candidate the kernel places a source window at the tile-min of
 // x - clip(D, dlo, dhi) (128-aligned, clamped), samples the 36 taps (11x11,
 // stride 2) bilinearly in x on the tap's own row at x + dx - (D + A dx +
@@ -26,6 +27,14 @@
 // minimum per candidate (warp shuffles + one shared-memory pass).  Compiled
 // with -fmad=false so sums and products round exactly like the plain-torch
 // version's separate operations.
+//
+// with_geom variant (kGeom, entry acmmp_rect_ncc_geom): a second plane, the
+// fused geometric-consistency cost of each candidate,
+// min(geom_max_cost, |D - sdisp| * srow[4]) where the centre sample is valid
+// and sdisp -- the source's implied rect disparity, read at the centre tap's
+// floored source column on the pixel's own row -- is not SENTINEL, else
+// geom_max_cost.  The TPU kernel double-buffers a 24 x win_w disparity
+// window by DMA; here it is one global load per (candidate, pixel).
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -50,6 +59,7 @@ __device__ __forceinline__ int floor_to_int(float v) {
   return (int)fminf(fmaxf(floorf(v), -1073741824.0f), 1073741824.0f);
 }
 
+template <bool kGeom>
 __global__ void __launch_bounds__(1024)
 rect_ncc_kernel(const float* __restrict__ srow, const int32_t* __restrict__ tile_oy,
                 const int32_t* __restrict__ tile_ox,
@@ -57,9 +67,10 @@ rect_ncc_kernel(const float* __restrict__ srow, const int32_t* __restrict__ tile
                 const float* __restrict__ rect_src,
                 const float* __restrict__ Dp, const uint32_t* __restrict__ ABp,
                 const float* __restrict__ fwd_valid, float* __restrict__ out,
+                const float* __restrict__ sdisp, float* __restrict__ gout,
                 int C, int S, int N, int Hp, int Wp, int win_w, int radius,
                 int increment, float inv_2sc, float clampv, float cost_max,
-                double inv_2ss) {
+                float geom_max, double inv_2ss) {
   extern __shared__ float smem[];
   float* ref_s = smem;                      // (24, 384) reference window
   float* ep_s = smem + kWinH * kRefWinW;    // exp(clip(ref) * inv_2sc)
@@ -76,7 +87,10 @@ rect_ncc_kernel(const float* __restrict__ srow, const int32_t* __restrict__ tile
 
   const bool valid = fwd_valid[pix] > 0.5f;
   if (!__syncthreads_or(valid)) {
-    for (int c = 0; c < C; ++c) out[c * plane + pix] = cost_max;
+    for (int c = 0; c < C; ++c) {
+      out[c * plane + pix] = cost_max;
+      if (kGeom) gout[c * plane + pix] = geom_max;
+    }
     return;
   }
 
@@ -126,11 +140,12 @@ rect_ncc_kernel(const float* __restrict__ srow, const int32_t* __restrict__ tile
     int cmin = floor_to_int((min_s - 6.0f) / 128.0f) * kTileW;
     cmin = min(max(cmin, -kPadX), Wp - kPadX - win_w);
 
-    // bilinear-in-x sample of tap (dx, dy); false when rejected
-    auto sample = [&](float dx, float dyf, int dy, float& val) -> bool {
+    // bilinear-in-x sample of tap (dx, dy) at window column rel; false when
+    // rejected
+    auto sample = [&](float dx, float dyf, int dy, float& val, int& rel) -> bool {
       const float xsrc = xg + dx - (D + A * dx + B * dyf);
       const float xf = floorf(xsrc);
-      const int rel = floor_to_int(xsrc) - cmin;
+      rel = floor_to_int(xsrc) - cmin;
       if (rel < 0 || rel > win_w - 2) return false;
       const float* p = src_frame + (long long)(oy + kTileH + dy + r) * Wp +
                        (cmin + kPadX + rel);
@@ -140,7 +155,9 @@ rect_ncc_kernel(const float* __restrict__ srow, const int32_t* __restrict__ tile
     };
 
     float val = 0.0f;
-    const bool center_ok = sample(0.0f, 0.0f, 0, val) && (D > 0.0f) && valid;
+    int rel_c = 0, rel = 0;
+    const bool center_ok =
+        sample(0.0f, 0.0f, 0, val, rel_c) && (D > 0.0f) && valid;
 
     float s_bw = 0.f, s_r = 0.f, s_rr = 0.f, s_s = 0.f, s_ss = 0.f, s_rs = 0.f;
     int t = 0;
@@ -156,7 +173,7 @@ rect_ncc_kernel(const float* __restrict__ srow, const int32_t* __restrict__ tile
         const float wr = wgt * ref_pix;
         const float wrr = wgt * ref_pix * ref_pix;
         float v = 0.0f;
-        const float okf = sample((float)dx, (float)dy, dy, v) ? 1.0f : 0.0f;
+        const float okf = sample((float)dx, (float)dy, dy, v, rel) ? 1.0f : 0.0f;
         if (okf == 0.0f) v = 0.0f;
         const float w_t = okf * wgt;
         s_bw = s_bw + w_t;
@@ -178,7 +195,43 @@ rect_ncc_kernel(const float* __restrict__ srow, const int32_t* __restrict__ tile
     const bool bad = s_bw < 1e-6f || var_ref < 1e-5f || var_src < 1e-5f ||
                      !center_ok;
     out[ci] = bad ? cost_max : cost;
+    if (kGeom) {
+      // center_ok puts rel_c inside the window, so the read is in bounds
+      float g = geom_max;
+      if (center_ok) {
+        const float dval = sdisp[((long long)s * Hp + oy + kTileH + r) * Wp +
+                                 cmin + kPadX + rel_c];
+        if (dval > kSentinelThresh)
+          g = fminf(geom_max, fabsf(D - dval) * srow[s * 128 + 4]);
+      }
+      gout[ci] = g;
+    }
   }
+}
+
+template <bool kGeom>
+int launch_rect_ncc(const float* srow, const int32_t* tile_oy,
+                    const int32_t* tile_ox, const float* rect_ref,
+                    const float* rect_src, const float* D, const uint32_t* AB,
+                    const float* fwd_valid, float* out, const float* sdisp,
+                    float* gout, int C, int S, int N, int Hp, int Wp,
+                    int win_w, int radius, int increment, float inv_2sc,
+                    float clampv, float cost_max, float geom_max,
+                    double inv_2ss, cudaStream_t stream) {
+  const int smem = 2 * kWinH * kRefWinW * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      rect_ncc_kernel<kGeom>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  if (N > 0 && S > 0) {
+    dim3 block(kTileW, kTileH);
+    dim3 grid(N, S);
+    rect_ncc_kernel<kGeom><<<grid, block, smem, stream>>>(
+        srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid, out,
+        sdisp, gout, C, S, N, Hp, Wp, win_w, radius, increment, inv_2sc,
+        clampv, cost_max, geom_max, inv_2ss);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -195,17 +248,27 @@ extern "C" int acmmp_rect_ncc(const float* srow, const int32_t* tile_oy,
                               int win_w, int radius, int increment,
                               float inv_2sc, float clampv, float cost_max,
                               double inv_2ss, cudaStream_t stream) {
-  const int smem = 2 * kWinH * kRefWinW * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      rect_ncc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (N > 0 && S > 0) {
-    dim3 block(kTileW, kTileH);
-    dim3 grid(N, S);
-    rect_ncc_kernel<<<grid, block, smem, stream>>>(
-        srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid, out, C,
-        S, N, Hp, Wp, win_w, radius, increment, inv_2sc, clampv, cost_max,
-        inv_2ss);
-  }
-  return (int)cudaGetLastError();
+  return launch_rect_ncc<false>(srow, tile_oy, tile_ox, rect_ref, rect_src, D,
+                                AB, fwd_valid, out, nullptr, nullptr, C, S, N,
+                                Hp, Wp, win_w, radius, increment, inv_2sc,
+                                clampv, cost_max, 0.0f, inv_2ss, stream);
+}
+
+// The with_geom variant: also sdisp (S, Hp, Wp) f32 in and the geometric
+// cost plane gout (C, S, 8N, 128) f32 out.
+extern "C" int acmmp_rect_ncc_geom(const float* srow, const int32_t* tile_oy,
+                                   const int32_t* tile_ox,
+                                   const float* rect_ref,
+                                   const float* rect_src, const float* D,
+                                   const uint32_t* AB, const float* fwd_valid,
+                                   float* out, const float* sdisp, float* gout,
+                                   int C, int S, int N, int Hp, int Wp,
+                                   int win_w, int radius, int increment,
+                                   float inv_2sc, float clampv,
+                                   float cost_max, float geom_max,
+                                   double inv_2ss, cudaStream_t stream) {
+  return launch_rect_ncc<true>(srow, tile_oy, tile_ox, rect_ref, rect_src, D,
+                               AB, fwd_valid, out, sdisp, gout, C, S, N, Hp,
+                               Wp, win_w, radius, increment, inv_2sc, clampv,
+                               cost_max, geom_max, inv_2ss, stream);
 }

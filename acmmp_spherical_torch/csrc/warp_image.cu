@@ -1,8 +1,9 @@
 // Sentinel-variant Catmull-Rom warp of the source images into their
-// rectified frames.
+// rectified frames, and the disparity warp of the source depth maps.
 //
 // Replaces: acmmp_spherical_tpu/ops/pallas/warp_image.py::warp_src_frames
-// (kernel _warp_kernel, mode "bicubic").  Per rect pixel: apply Hinv in f32
+// (kernel _warp_kernel, mode "bicubic") and ::warp_src_disparities (mode
+// "disp", below).  Per rect pixel: apply Hinv in f32
 // (the formula of rectify.rect_coords), take the edge-clamped 4x4
 // Catmull-Rom sample, accumulate each tap row's column sum in tap-row order,
 // and write SENTINEL where the pixel falls outside the source image or
@@ -60,6 +61,25 @@ __device__ __forceinline__ int floor_to_int(float v) {
   return (int)fminf(fmaxf(floorf(v), -1073741824.0f), 1073741824.0f);
 }
 
+// The Pallas kernel's per-tile gate (warp_image.py:89-105): every corner in
+// front of the frame, the corner bbox near the image and inside the
+// (WR, WC) window.  Uniform over the (8, 128) tile at (x00, y00).
+__device__ __forceinline__ bool tile_live(const float* h, float x00, float y00,
+                                          float wi, float hi, int WR, int WC) {
+  const Coords c0 = rect_coords(h, x00, y00);
+  const Coords c1 = rect_coords(h, x00, y00 + 7.0f);
+  const Coords c2 = rect_coords(h, x00 + 127.0f, y00);
+  const Coords c3 = rect_coords(h, x00 + 127.0f, y00 + 7.0f);
+  const bool corners_ok = fminf(fminf(c0.z, c1.z), fminf(c2.z, c3.z)) > 1e-6f;
+  const float cx_lo = fminf(fminf(c0.ox, c1.ox), fminf(c2.ox, c3.ox));
+  const float cx_hi = fmaxf(fmaxf(c0.ox, c1.ox), fmaxf(c2.ox, c3.ox));
+  const float cy_lo = fminf(fminf(c0.oy, c1.oy), fminf(c2.oy, c3.oy));
+  const float cy_hi = fmaxf(fmaxf(c0.oy, c1.oy), fmaxf(c2.oy, c3.oy));
+  return corners_ok && cx_hi >= -2.0f && cx_lo < wi + 2.0f &&
+         cy_hi >= -2.0f && cy_lo < hi + 2.0f &&
+         (cx_hi - cx_lo < (float)WC - 8.0f) && (cy_hi - cy_lo < (float)WR - 8.0f);
+}
+
 __global__ void __launch_bounds__(1024)
 warp_src_kernel(const float* __restrict__ imgs, const float* __restrict__ consts,
                 float* __restrict__ out, int Hp, int Wp, int HpR, int WpR,
@@ -74,24 +94,9 @@ warp_src_kernel(const float* __restrict__ imgs, const float* __restrict__ consts
   const int py = ty * 8 + threadIdx.y;
   float* dst = out + ((long long)s * HpR + py) * WpR + px;
 
-  if (gate) {
-    const Coords c0 = rect_coords(h, x00, y00);
-    const Coords c1 = rect_coords(h, x00, y00 + 7.0f);
-    const Coords c2 = rect_coords(h, x00 + 127.0f, y00);
-    const Coords c3 = rect_coords(h, x00 + 127.0f, y00 + 7.0f);
-    const bool corners_ok = fminf(fminf(c0.z, c1.z), fminf(c2.z, c3.z)) > 1e-6f;
-    const float cx_lo = fminf(fminf(c0.ox, c1.ox), fminf(c2.ox, c3.ox));
-    const float cx_hi = fmaxf(fmaxf(c0.ox, c1.ox), fmaxf(c2.ox, c3.ox));
-    const float cy_lo = fminf(fminf(c0.oy, c1.oy), fminf(c2.oy, c3.oy));
-    const float cy_hi = fmaxf(fmaxf(c0.oy, c1.oy), fmaxf(c2.oy, c3.oy));
-    const bool live = corners_ok && cx_hi >= -2.0f && cx_lo < wi + 2.0f &&
-                      cy_hi >= -2.0f && cy_lo < hi + 2.0f &&
-                      (cx_hi - cx_lo < (float)WC - 8.0f) &&
-                      (cy_hi - cy_lo < (float)WR - 8.0f);
-    if (!live) {
-      *dst = kSentinel;
-      return;
-    }
+  if (gate && !tile_live(h, x00, y00, wi, hi, WR, WC)) {
+    *dst = kSentinel;
+    return;
   }
 
   const float xs = (float)threadIdx.x + x00;
@@ -123,6 +128,50 @@ warp_src_kernel(const float* __restrict__ imgs, const float* __restrict__ consts
   *dst = acc;
 }
 
+// Disparity warp (mode "disp"): per rect pixel, the source depth at the
+// truncated source pixel of Hinv (x, y) (the reference's depth reads,
+// ACMMP.cu:657), turned into the implied rect disparity fB / z_rect with
+// z_rect = depth * (R_sr[2] . ((ox - cx) / fx, (oy - cy) / fy, 1)) -- the
+// float ox, oy, not the truncated ones.  SENTINEL where z <= 0, the pixel is
+// off the source image (ox, oy >= 0 first, then the truncated index below
+// the width/height), the depth or z_rect is not positive, or the tile fails
+// the gate.  Bound: one gathered read + one write per output pixel (bytes);
+// same block layout as the bicubic warp.
+__global__ void __launch_bounds__(1024)
+warp_disp_kernel(const float* __restrict__ depths,
+                 const float* __restrict__ consts, float* __restrict__ out,
+                 int Hp, int Wp, int HpR, int WpR, int WR, int WC, int gate) {
+  const int s = blockIdx.z;
+  const int tx = blockIdx.x, ty = blockIdx.y;
+  const float* h = consts + s * 19;
+  const float wi = h[9], hi = h[10];
+  const float x00 = 128.0f * (float)tx - (float)kPadX;
+  const float y00 = 8.0f * (float)ty - (float)kPadY;
+  const int px = tx * 128 + threadIdx.x;
+  const int py = ty * 8 + threadIdx.y;
+  float* dst = out + ((long long)s * HpR + py) * WpR + px;
+
+  if (gate && !tile_live(h, x00, y00, wi, hi, WR, WC)) {
+    *dst = kSentinel;
+    return;
+  }
+  const Coords c = rect_coords(h, (float)threadIdx.x + x00,
+                               (float)threadIdx.y + y00);
+  // ox < wi  <=>  (int)ox < wi  for ox >= 0 and an integer-valued wi
+  if (!((c.z > 0.0f) && (c.ox >= 0.0f) && (c.oy >= 0.0f) && (c.ox < wi) &&
+        (c.oy < hi))) {
+    *dst = kSentinel;
+    return;
+  }
+  const int xi = (int)c.ox, yi = (int)c.oy;  // C truncation, both >= 0
+  const float zs = depths[((long long)s * Hp + yi) * Wp + xi];
+  const float u = (c.ox - h[17]) / h[15];
+  const float v = (c.oy - h[18]) / h[16];
+  const float z_rect = zs * (h[12] * u + h[13] * v + h[14]);
+  const float disp = h[11] / fmaxf(z_rect, 1e-6f);
+  *dst = (zs > 0.0f && z_rect > 0.0f) ? disp : kSentinel;
+}
+
 }  // namespace
 
 // imgs (S, Hp, Wp) f32; consts (S, 11) f32: Hinv row-major, width, height;
@@ -136,5 +185,19 @@ extern "C" int acmmp_warp_src_frames(const float* imgs, const float* consts,
   dim3 grid(WpR / 128, HpR / 8, S);
   warp_src_kernel<<<grid, block, 0, stream>>>(imgs, consts, out, Hp, Wp, HpR,
                                               WpR, WR, WC, gate);
+  return (int)cudaGetLastError();
+}
+
+// depths (S, Hp, Wp) f32; consts (S, 19) f32: Hinv row-major, width, height,
+// fB, R_sr[2, :], fx, fy, cx, cy of the source camera; out (S, HpR, WpR) f32.
+extern "C" int acmmp_warp_src_disparities(const float* depths,
+                                          const float* consts, float* out,
+                                          int S, int Hp, int Wp, int HpR,
+                                          int WpR, int WR, int WC, int gate,
+                                          cudaStream_t stream) {
+  dim3 block(128, 8);
+  dim3 grid(WpR / 128, HpR / 8, S);
+  warp_disp_kernel<<<grid, block, 0, stream>>>(depths, consts, out, Hp, Wp,
+                                               HpR, WpR, WR, WC, gate);
   return (int)cudaGetLastError();
 }

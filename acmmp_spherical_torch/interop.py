@@ -1,11 +1,12 @@
 """numpy -> torch converters for the state of a pass.
 
-The system has no weights; what a pass carries is its cameras, its inputs,
-its plane state and its rectified working set.  These converters take plain
+The system has no weights; what a pass carries is its parameters, cameras,
+inputs, plane state and rectified working set.  These converters take plain
 dicts of numpy arrays (field name -> array, nested for sub-structures), so
 state produced elsewhere -- for instance by the JAX reference package, read
 out with ``numpy.asarray`` -- can be handed to the port unchanged.  This
-module takes numpy only.
+module takes numpy only.  Tensors go to the CUDA device unless ``device``
+says otherwise.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from acmmp_spherical_torch.config import PatchMatchParams
 from acmmp_spherical_torch.core.camera import Camera, PINHOLE
 from acmmp_spherical_torch.core.plane import PlaneState
 from acmmp_spherical_torch.ops.propagate import PatchMatchInputs
@@ -23,21 +25,27 @@ def _t(a, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
-def camera(d: dict, device="cpu") -> Camera:
+def params(d: dict) -> PatchMatchParams:
+    """PatchMatchParams from a field dict (``dataclasses.asdict`` of the
+    reference's parameters)."""
+    return PatchMatchParams(**d)
+
+
+def camera(d: dict, device="cuda") -> Camera:
     """Camera (single or batched) from R, t, K, params, wh, depth_range."""
     f = lambda k: _t(d[k], torch.float32, device)
     return Camera(R=f("R"), t=f("t"), K=f("K"), params=f("params"), wh=f("wh"),
                   depth_range=f("depth_range"), model=d.get("model", PINHOLE))
 
 
-def plane_state(d: dict, device="cpu") -> PlaneState:
+def plane_state(d: dict, device="cuda") -> PlaneState:
     f = lambda k: _t(d[k], torch.float32, device)
     return PlaneState(normal=f("normal"), w=f("w"), cost=f("cost"),
                       selected=_t(d["selected"], torch.bool, device),
                       pre_cost=f("pre_cost"))
 
 
-def transport_maps(d: dict, device="cpu") -> TransportMaps:
+def transport_maps(d: dict, device="cuda") -> TransportMaps:
     i64 = lambda k: _t(d[k], torch.int64, device)
     return TransportMaps(
         fwd_idx=_t(d["fwd_idx"], torch.int32, device),
@@ -46,21 +54,23 @@ def transport_maps(d: dict, device="cpu") -> TransportMaps:
         bwd_valid=_t(d["bwd_valid"], torch.bool, device))
 
 
-def rect_context(d: dict, device="cpu") -> RectContext:
+def rect_context(d: dict, device="cuda") -> RectContext:
     """RectContext from {pr: {...}, rect_ref, rect_src, maps: [3 dicts],
-    tile_oy, tile_ox, srow}."""
+    tile_oy, tile_ox, srow[, rect_sdisp]}."""
     f = lambda a: _t(a, torch.float32, device)
     pr = PairRect(**{k: f(v) for k, v in d["pr"].items()})
+    sdisp = d.get("rect_sdisp")
     return RectContext(
         pr=pr, rect_ref=f(d["rect_ref"]), rect_src=f(d["rect_src"]),
         maps=tuple(transport_maps(m, device) for m in d["maps"]),
         tile_oy=_t(d["tile_oy"], torch.int32, device),
-        tile_ox=_t(d["tile_ox"], torch.int32, device), srow=f(d["srow"]))
+        tile_ox=_t(d["tile_ox"], torch.int32, device), srow=f(d["srow"]),
+        rect_sdisp=None if sdisp is None else f(sdisp))
 
 
-def patchmatch_inputs(d: dict, device="cpu") -> PatchMatchInputs:
+def patchmatch_inputs(d: dict, device="cuda") -> PatchMatchInputs:
     """PatchMatchInputs from {ref_image, src_images, ref_cam: {...},
-    src_cams: {...}, src_valid, depth_range[, rect: {...}]}."""
+    src_cams: {...}, src_valid, depth_range[, src_depths][, rect: {...}]}."""
     f = lambda k: _t(d[k], torch.float32, device)
     rect = d.get("rect")
     return PatchMatchInputs(
@@ -69,4 +79,5 @@ def patchmatch_inputs(d: dict, device="cpu") -> PatchMatchInputs:
         src_cams=camera(d["src_cams"], device),
         src_valid=_t(d["src_valid"], torch.bool, device),
         depth_range=f("depth_range"),
+        src_depths=None if d.get("src_depths") is None else f("src_depths"),
         rect=None if rect is None else rect_context(rect, device))

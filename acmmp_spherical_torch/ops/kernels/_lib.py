@@ -1,10 +1,11 @@
 """Build, load and count the CUDA kernels of ``acmmp_spherical_torch/csrc``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``.  The build runs at
-first use, into ``acmmp_spherical_torch/_build/<hash>/`` keyed by a hash of
-the sources and flags, so a checkout builds everything it needs from its own
-files.  Every C entry point returns ``cudaGetLastError()`` after its launch.
+The sources are compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per
+source, all started together) and linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  The build runs at first use, into
+``acmmp_spherical_torch/_build/<hash>/`` keyed by a hash of the sources and
+flags, so a checkout builds everything it needs from its own files.  Every C
+entry point returns ``cudaGetLastError()`` after its launch.
 
 ``LAUNCHES`` counts kernel launches per wrapper (and nothing else): a run can
 show that its main path went through the kernels.
@@ -26,9 +27,10 @@ _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"rect_ncc": 0, "warp_transport": 0, "warp_src_frames": 0}
+LAUNCHES = {"rect_ncc": 0, "rect_ncc_geom": 0, "warp_transport": 0,
+            "warp_src_frames": 0, "warp_src_disparities": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,8 +38,10 @@ _F = ctypes.c_float
 _D = ctypes.c_double
 _SIGNATURES = {
     "acmmp_rect_ncc": [_P] * 9 + [_I] * 8 + [_F] * 3 + [_D, _P],
+    "acmmp_rect_ncc_geom": [_P] * 11 + [_I] * 8 + [_F] * 4 + [_D, _P],
     "acmmp_warp_transport": [_P] * 6 + [_I] * 4 + [_P],
     "acmmp_warp_src_frames": [_P] * 3 + [_I] * 8 + [_P],
+    "acmmp_warp_src_disparities": [_P] * 3 + [_I] * 8 + [_P],
 }
 
 _lib = None
@@ -66,16 +70,34 @@ def _build() -> pathlib.Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                          *[str(s) for s in sources]],
+    tmp_dir = pathlib.Path(tempfile.mkdtemp(dir=out_dir))
+    nvcc = _nvcc()
+    objs = [tmp_dir / (src.stem + ".o") for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = []
+    for src, proc in zip(sources, procs):
+        out, err = proc.communicate()
+        logs.append(f"== {src.name}\n{out}{err}")
+        if proc.returncode != 0:
+            for other in procs:
+                other.wait()
+            shutil.rmtree(tmp_dir, ignore_errors=True)
+            raise RuntimeError(f"nvcc failed on {src.name} "
+                               f"({proc.returncode}):\n{err}")
+    tmp = tmp_dir / lib_path.name
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                          *[str(o) for o in objs]],
                          capture_output=True, text=True)
     if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
     os.replace(tmp, lib_path)
-    (out_dir / "ptxas.log").write_text(res.stderr)
+    shutil.rmtree(tmp_dir, ignore_errors=True)
+    (out_dir / "ptxas.log").write_text("".join(logs))
     return lib_path
 
 

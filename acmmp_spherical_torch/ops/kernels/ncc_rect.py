@@ -1,11 +1,12 @@
 """Rectified bilateral-NCC evaluation of candidate plane batches (counterpart
-of acmmp_spherical_tpu/ops/pallas/ncc_rect.py, photometric pinhole path).
+of acmmp_spherical_tpu/ops/pallas/ncc_rect.py, pinhole path).
 
 ``rect_batched_ncc`` computes each pair's affine disparity coefficients on
 the evaluation grid (plain torch), moves them onto the compacted live tiles
-(kernel ``warp_transport``), evaluates the cost (kernel ``rect_ncc``) and
-maps the cost planes back to the evaluation grid with a gather by
-``bwd_cidx``.  A and B ride as one bf16 pair word (``pack_ab``): the
+(kernel ``warp_transport``), evaluates the cost (kernel ``rect_ncc``; in
+geometric passes its with_geom variant, which also returns the fused
+geometric cost) and maps the cost planes back to the evaluation grid with a
+gather by ``bwd_cidx``.  A and B ride as one bf16 pair word (``pack_ab``): the
 reference applies that rounding unconditionally, so it is part of the
 algorithm.  Taps are sampled in f32 and costs map back in f32 (the
 reference's ``rect_tap_pack``/``rect_backmap_pack`` bf16 levers are not
@@ -18,7 +19,7 @@ import math
 
 import torch
 
-from acmmp_spherical_tpu.config import PatchMatchParams
+from acmmp_spherical_torch.config import PatchMatchParams
 from acmmp_spherical_torch.ops.kernels import _lib
 from acmmp_spherical_torch.ops.rectify import (
     PAD_X, RectContext, SENTINEL_THRESH,
@@ -108,11 +109,14 @@ def _weight_consts(params: PatchMatchParams):
 
 
 def rect_ncc_plain(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB,
-                   fwd_valid, params: PatchMatchParams):
+                   fwd_valid, params: PatchMatchParams, sdisp=None):
     """Plain torch kernel 1: loops over candidates and taps and keeps only
     the six running sums per candidate, never a (C, S, taps, 8N, 128)
     tensor.  Same per-tile rules, weight formula and summation order as the
-    Pallas kernel (photometric, f32 taps)."""
+    Pallas kernel (f32 taps).  With ``sdisp`` (the with_geom variant) also
+    the geometric cost: ``min(geom_max_cost, |D - sdisp| * srow[4])`` with
+    sdisp read at the centre tap's source column, ``geom_max_cost`` where
+    the centre is invalid or sdisp is SENTINEL; returns (cost, geom)."""
     C, S, K8, _ = D.shape
     N = K8 // TILE_H
     dev = D.device
@@ -151,6 +155,7 @@ def rect_ncc_plain(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB,
     xg = ox.to(torch.float32) + ll.to(torch.float32)
     src_flat = rect_src.reshape(S, -1)
     out = torch.empty_like(D)
+    gout = None if sdisp is None else torch.empty_like(D)
     for c in range(C):
         Dc = D[c].reshape(S, N, TILE_H, TILE_W)
         Ac, Bc = unpack_ab(AB[c].reshape(S, N, TILE_H, TILE_W))
@@ -170,13 +175,22 @@ def rect_ncc_plain(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB,
                               ).reshape(flat.shape)
             ok = inwin & (g0 > SENTINEL_THRESH) & (g1 > SENTINEL_THRESH)
             val = torch.where(ok, g0 + (g1 - g0) * (xsrc - xf), 0.0)
-            return val, ok
+            return val, ok, flat
 
-        _, ok_c = sample(0, 0)
+        _, ok_c, flat_c = sample(0, 0)
         center_ok = ok_c & (Dc > 0.0) & valid
+        if sdisp is not None:
+            # the centre tap's column: in the window wherever center_ok
+            dval = torch.gather(sdisp.reshape(S, -1), 1,
+                                flat_c.reshape(S, -1)).reshape(flat_c.shape)
+            gok = center_ok & (dval > SENTINEL_THRESH)
+            err = (Dc - dval).abs() * srow[:, 4].reshape(S, 1, 1, 1)
+            gmax = params.geom_max_cost
+            gout[c] = torch.where(gok, torch.clamp(err, max=gmax),
+                                  gmax).reshape(S, K8, TILE_W)
         s_bw = s_r = s_rr = s_s = s_ss = s_rs = torch.zeros_like(Dc)
         for dx, dy, wgt, wr, wrr in taps:
-            val, ok = sample(dx, dy)
+            val, ok, _ = sample(dx, dy)
             okf = ok.float()
             w_t = okf * wgt
             s_bw = s_bw + w_t
@@ -196,16 +210,17 @@ def rect_ncc_plain(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB,
         bad = ((s_bw < 1e-6) | (var_ref < 1e-5) | (var_src < 1e-5)
                | ~center_ok)
         out[c] = torch.where(bad, cost_max, cost).reshape(S, K8, TILE_W)
-    return out
+    return out if sdisp is None else (out, gout)
 
 
 def rect_ncc(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
-             params: PatchMatchParams):
+             params: PatchMatchParams, sdisp=None):
     """Kernel 1 (csrc/rect_ncc.cu) on CUDA tensors; the plain version on CPU
-    tensors.  Returns the (C, S, 8N, 128) cost planes."""
+    tensors.  Returns the (C, S, 8N, 128) cost planes; with ``sdisp`` (S, Hp,
+    Wp) the with_geom variant, returning (cost, geom) planes."""
     if D.device.type == "cpu":
         return rect_ncc_plain(srow, tile_oy, tile_ox, rect_ref, rect_src, D,
-                              AB, fwd_valid, params)
+                              AB, fwd_valid, params, sdisp)
     C, S, K8, _ = D.shape
     N = K8 // TILE_H
     dev = D.device
@@ -227,16 +242,28 @@ def rect_ncc(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
         raise ValueError("rect_ncc supports patch radius <= 8 and <= 64 taps")
     out = torch.empty((C, S, K8, TILE_W), dtype=torch.float32, device=dev)
     lib = _lib.library()
+    common = (srow.data_ptr(), tile_oy.data_ptr(), tile_ox.data_ptr(),
+              rect_ref.data_ptr(), rect_src.data_ptr(), D.data_ptr(),
+              AB.data_ptr(), fwd_valid.data_ptr(), out.data_ptr())
+    shape = (C, S, N, Hp, Wp, win_w, r, params.radius_increment)
+    if sdisp is None:
+        with torch.cuda.device(dev):
+            err = lib.acmmp_rect_ncc(*common, *shape, inv_2sc, clampv,
+                                     params.cost_max, inv_2ss,
+                                     _lib.stream_ptr(out))
+        _lib.check(err, "rect_ncc")
+        _lib.LAUNCHES["rect_ncc"] += 1
+        return out
+    _lib.require(sdisp, "sdisp", torch.float32, (S, Hp, Wp), dev)
+    gout = torch.empty_like(out)
     with torch.cuda.device(dev):
-        err = lib.acmmp_rect_ncc(
-            srow.data_ptr(), tile_oy.data_ptr(), tile_ox.data_ptr(),
-            rect_ref.data_ptr(), rect_src.data_ptr(), D.data_ptr(),
-            AB.data_ptr(), fwd_valid.data_ptr(), out.data_ptr(),
-            C, S, N, Hp, Wp, win_w, r, params.radius_increment,
-            inv_2sc, clampv, params.cost_max, inv_2ss, _lib.stream_ptr(out))
-    _lib.check(err, "rect_ncc")
-    _lib.LAUNCHES["rect_ncc"] += 1
-    return out
+        err = lib.acmmp_rect_ncc_geom(
+            *common, sdisp.data_ptr(), gout.data_ptr(), *shape, inv_2sc,
+            clampv, params.cost_max, params.geom_max_cost, inv_2ss,
+            _lib.stream_ptr(out))
+    _lib.check(err, "rect_ncc_geom")
+    _lib.LAUNCHES["rect_ncc_geom"] += 1
+    return out, gout
 
 
 # ---------------------------------------------------------------------------
@@ -285,14 +312,23 @@ def backmap(cost, maps, out_hw, fill):
 
 
 def rect_batched_ncc(rect: RectContext, normals, ws, params: PatchMatchParams,
-                     *, parity=None):
+                     *, parity=None, with_geom: bool = False):
     """Evaluate C candidate plane fields (C, H, Wg[, 3]) against S sources ->
     (C, S, H, Wg).  ``parity`` None: full-grid fields with the full map;
-    0/1: checkerboard-packed half-grid fields with that colour's map."""
+    0/1: checkerboard-packed half-grid fields with that colour's map.
+    ``with_geom`` also returns the geometric cost planes against
+    ``rect.rect_sdisp`` -> (cost, geom); pixels without a rect pixel read
+    ``geom_max_cost`` there."""
     C, H, Wg = ws.shape
     maps = rect.maps[0 if parity is None else 1 + parity]
     tab_d, tab_ab = coefficient_tables(rect, maps, normals, ws)
     D, AB = warp_transport(tab_d, tab_ab, maps.fwd_idx, maps.fwd_valid)
-    cost = rect_ncc(rect.srow, rect.tile_oy, rect.tile_ox, rect.rect_ref,
-                    rect.rect_src, D, AB, maps.fwd_valid, params)
-    return backmap(cost, maps, (H, Wg), params.cost_max)
+    args = (rect.srow, rect.tile_oy, rect.tile_ox, rect.rect_ref,
+            rect.rect_src, D, AB, maps.fwd_valid, params)
+    if not with_geom:
+        return backmap(rect_ncc(*args), maps, (H, Wg), params.cost_max)
+    if rect.rect_sdisp is None:
+        raise ValueError("with_geom needs the context's rect_sdisp")
+    cost, geom = rect_ncc(*args, sdisp=rect.rect_sdisp)
+    return (backmap(cost, maps, (H, Wg), params.cost_max),
+            backmap(geom, maps, (H, Wg), params.geom_max_cost))

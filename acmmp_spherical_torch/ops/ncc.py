@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from acmmp_spherical_tpu.config import PatchMatchParams
+from acmmp_spherical_torch.config import PatchMatchParams
 
 
 def topk_cost_and_selection(cost_vector, src_valid, params: PatchMatchParams):

@@ -4,9 +4,10 @@ acmmp_spherical_tpu/ops/rectify.py, pinhole pairs).
 Each (ref, src) pair is rotated onto its baseline so a plane hypothesis
 becomes an affine disparity along rows.  This module builds the per-pass
 working set: the pair rectifications, the warped reference (edge-clamped
-bicubic, plain torch) and source frames (kernel ``warp_src_frames``), and the
+bicubic, plain torch) and source frames (kernel ``warp_src_frames``), the
 compacted transport maps between original pixels and live (8, 128) rect
-tiles.
+tiles, and in geometric passes the source depths warped into implied rect
+disparities (kernel ``warp_src_disparities``).
 
 The transport attribution is always scatter-free or deterministic: with
 ``inv_attrib`` it is the reference's inverse check of the 3x3 neighbourhood;
@@ -533,6 +534,10 @@ class RectContext:
     tile_oy: torch.Tensor    # (S, N) int32 live-tile storage-row origins
     tile_ox: torch.Tensor    # (S, N) int32
     srow: torch.Tensor       # (S, 128): disp_lo, disp_hi, oy, ox, 1/scale
+    # geometric passes: (S, hr+2*PAD_Y, wr+2*PAD_X) source depths warped into
+    # each pair's rect frame as the implied rect disparity f*B/z_rect
+    # (SENTINEL where there is no valid source depth)
+    rect_sdisp: "torch.Tensor | None" = None
 
 
 def _attribution_inverse(pr, off_y, off_x, comp_hw, hw):
@@ -593,9 +598,10 @@ def _attribution_scatter(bwd_x, bwd_y, bwd_ok, comp_hw, hw):
 
 def build_rect_context(ref_image, src_images, ref_cam: Camera,
                        src_cams: Cameras, depth_range, *, comp_hw=None,
-                       live_n=None, warp_hw=None, inv_attrib: bool = False
-                       ) -> RectContext:
-    """Build the per-pass rectified working set (photometric passes)."""
+                       live_n=None, warp_hw=None, inv_attrib: bool = False,
+                       src_depths=None) -> RectContext:
+    """Build the per-pass rectified working set; ``src_depths`` (S, Hp, Wp)
+    also builds ``rect_sdisp`` for geometric passes."""
     from acmmp_spherical_torch.ops.kernels.warp_image import warp_src_frames
 
     H, W = ref_image.shape
@@ -655,5 +661,26 @@ def build_rect_context(ref_image, src_images, ref_cam: Camera,
     srow[:, 2] = off_y
     srow[:, 3] = off_x
     srow[:, 4] = 1.0 / torch.clamp(pr.scale, min=1e-6)
+    rect_sdisp = None
+    if src_depths is not None:
+        rect_sdisp = build_rect_sdisp(pr, src_depths, src_cams, (hr, wr),
+                                      warp_hw)
     return RectContext(pr=pr, rect_ref=rect_ref, rect_src=rect_src, maps=maps,
-                       tile_oy=tile_oy, tile_ox=tile_ox, srow=srow)
+                       tile_oy=tile_oy, tile_ox=tile_ox, srow=srow,
+                       rect_sdisp=rect_sdisp)
+
+
+def build_rect_sdisp(pr: PairRect, src_depths, src_cams: Cameras, rect_hw,
+                     warp_hw):
+    """Warp each source depth map into its pair's rect frame as the implied
+    rect disparity (kernel ``warp_src_disparities``): trunc-nearest depth
+    lookup like the reference's depth reads (ACMMP.cu:657), SENTINEL where
+    the source has no valid depth.  ``warp_hw`` enables the per-tile gate of
+    the TPU kernel; None is the reference's ungated XLA ``warp_disp``."""
+    from acmmp_spherical_torch.ops.kernels.warp_image import (
+        warp_src_disparities,
+    )
+
+    return warp_src_disparities(
+        src_depths, pr.H1inv, pr.R_sr, src_cams.K, pr.K[:, 0] * pr.baseline,
+        src_cams.width, src_cams.height, rect_hw, warp_hw)

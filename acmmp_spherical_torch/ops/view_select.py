@@ -7,7 +7,7 @@ import dataclasses
 
 import torch
 
-from acmmp_spherical_tpu.config import PatchMatchParams
+from acmmp_spherical_torch.config import PatchMatchParams
 from acmmp_spherical_torch.ops import rng as R
 from acmmp_spherical_torch.ops.candidates import neighbor_selected_views
 

@@ -77,7 +77,7 @@ def render_view(cam: Camera, scene: CubeRoom, width: int, height: int):
 def make_ring_of_cameras(n: int, *, width: int = 96, height: int = 72,
                          focal: float = 80.0, radius: float = 0.35,
                          half: float = 4.0, look_jitter: float = 0.0,
-                         device="cpu") -> list[Camera]:
+                         device="cuda") -> list[Camera]:
     """Pinhole cameras on a small circle near the room centre, looking +z."""
     cams = []
     dmin, dmax = 0.3 * half, 2.5 * half

@@ -38,7 +38,7 @@ def _random_camera(rng):
                   [0, rng.uniform(60, 900), rng.uniform(30, 400)], [0, 0, 1]])
     t = rng.normal(size=3)
     kw = dict(K=K, width=640, height=480, depth_min=0.5, depth_max=9.0)
-    return JC.make_camera(q, t, **kw), TC.make_camera(q, t, **kw)
+    return JC.make_camera(q, t, **kw), TC.make_camera(q, t, **kw, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -8,8 +8,11 @@ JAX, so they also run on a GPU host without it:
 
 Tolerances (as chip_smoke.py): warp_transport bit-exact; rect_ncc with the
 cost_max mask identical on >= 99.9% of pixels and costs within 1e-4
-elsewhere; warp_src_frames within 1e-4 greylevels with an identical
-SENTINEL mask; the golden pass within drift_gate's 2e-2 of the fixture.
+elsewhere, and in its with_geom variant the geometric planes with an
+identical geom < geom_max_cost mask and within 1e-4; warp_src_frames within
+1e-4 greylevels and warp_src_disparities equal, each with an identical
+SENTINEL mask; the golden photometric and geometric passes within
+drift_gate's 2e-2 of their fixtures.
 """
 
 import dataclasses
@@ -22,7 +25,9 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-from acmmp_spherical_torch.bench import make_problem  # noqa: E402
+from acmmp_spherical_torch.bench import (  # noqa: E402
+    GOLDEN_KEY, GOLDEN_SCENE, golden_geom_problem, make_problem,
+)
 from acmmp_spherical_torch.ops import rng as R  # noqa: E402
 from acmmp_spherical_torch.ops.kernels import _lib  # noqa: E402
 from acmmp_spherical_torch.ops.kernels import ncc_rect as NR  # noqa: E402
@@ -36,7 +41,7 @@ from acmmp_spherical_torch.ops.sampling import (  # noqa: E402
 )
 from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch  # noqa: E402
 
-FIXTURE = pathlib.Path(__file__).parent / "fixtures" / "golden_pass_stats_warp.json"
+FIXTURES = pathlib.Path(__file__).parent / "fixtures"
 
 
 @pytest.fixture
@@ -47,12 +52,28 @@ def cuda():
 
 
 def _golden(device):
-    return make_problem(96, 64, 3, device, focal=80.0, radius=0.35)
+    return make_problem(**GOLDEN_SCENE, device=device)
+
+
+def _check_against(fixture, d, nrm, cost):
+    d, nrm, cost = d.cpu().numpy(), nrm.cpu().numpy(), cost.cpu().numpy()
+    H, W = d.shape
+    stats = {}
+    for qi, sl in enumerate([np.s_[: H // 2, : W // 2], np.s_[: H // 2, W // 2:],
+                             np.s_[H // 2:, : W // 2], np.s_[H // 2:, W // 2:]]):
+        stats[f"depth_mean_q{qi}"] = float(np.mean(d[sl]))
+        stats[f"depth_median_q{qi}"] = float(np.median(d[sl]))
+        stats[f"cost_mean_q{qi}"] = float(np.mean(cost[sl]))
+    stats["normal_mean_abs"] = float(np.mean(np.abs(nrm)))
+    stats["depth_p10"] = float(np.percentile(d, 10))
+    stats["depth_p90"] = float(np.percentile(d, 90))
+    for k, v in json.loads((FIXTURES / fixture).read_text()).items():
+        assert abs(stats[k] - v) <= max(2e-2, 2e-2 * abs(v)), (k, stats[k], v)
 
 
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain(cuda):
-    inputs, params, _ = _golden(cuda)
+    inputs, params = _golden(cuda)[:2]
     prep = prepare_inputs(inputs, params)
     rect = prep.rect
     H, W = inputs.ref_image.shape
@@ -84,25 +105,67 @@ def test_cuda_kernels_match_plain(cuda):
     vk = fk > SENTINEL_THRESH
     assert torch.equal(vk, fp > SENTINEL_THRESH)
     assert float((fk - fp)[vk].abs().max()) <= 1e-4
-    assert _lib.LAUNCHES == {"rect_ncc": 1, "warp_transport": 1,
-                             "warp_src_frames": 1}
+    assert _lib.LAUNCHES == {"rect_ncc": 1, "rect_ncc_geom": 0,
+                             "warp_transport": 1, "warp_src_frames": 1,
+                             "warp_src_disparities": 0}
+
+
+@pytest.mark.gpu
+def test_geom_kernels_match_plain(cuda):
+    inputs, params, seeds, _ = golden_geom_problem(cuda)
+    prep = prepare_inputs(inputs, params)
+    rect = prep.rect
+    H, W = inputs.ref_image.shape
+    _lib.reset_launch_counts()
+    src = inputs.src_cams
+    dargs = (inputs.src_depths, rect.pr.H1inv, rect.pr.R_sr, src.K,
+             rect.pr.K[:, 0] * rect.pr.baseline, src.width, src.height,
+             rect_shape(H, W), params.rect_warp_hw)
+    sk = WI.warp_src_disparities(*dargs)
+    sp = WI.warp_src_disparities_plain(*dargs)
+    torch.cuda.synchronize()
+    vk = sk > SENTINEL_THRESH
+    assert torch.equal(vk, sp > SENTINEL_THRESH) and float(vk.float().mean()) > 0.05
+    assert torch.equal(sk[vk], sp[vk])
+    xs, ys = grid_coords(H, W, cuda)
+    from acmmp_spherical_torch.core import geometry as G
+
+    n = G.normal_world_to_cam(inputs.ref_cam, seeds["seed_normal_world"])
+    w = G.dist_to_origin(inputs.ref_cam, xs, ys, seeds["seed_depth"], n)
+    normals = torch.stack([checkerboard_pack(n.movedim(-1, 0), 1).movedim(0, -1)
+                           ] * 5)
+    ws = torch.stack([checkerboard_pack(w * (1.0 + 0.005 * k), 1)
+                      for k in range(-2, 3)])
+    maps = rect.maps[2]
+    tab_d, tab_ab = NR.coefficient_tables(rect, maps, normals, ws)
+    D, AB = NR.warp_transport(tab_d, tab_ab, maps.fwd_idx, maps.fwd_valid)
+    args = (rect.srow, rect.tile_oy, rect.tile_ox, rect.rect_ref,
+            rect.rect_src, D, AB, maps.fwd_valid, params)
+    ck, gk = NR.rect_ncc(*args, sdisp=rect.rect_sdisp)
+    cp, gp = NR.rect_ncc_plain(*args, sdisp=rect.rect_sdisp)
+    torch.cuda.synchronize()
+    bk, bp = ck >= params.cost_max, cp >= params.cost_max
+    assert float((bk == bp).float().mean()) >= 0.999
+    assert torch.allclose(ck[~bk & ~bp], cp[~bk & ~bp], atol=1e-4, rtol=0)
+    ok = gk < params.geom_max_cost
+    assert torch.equal(ok, gp < params.geom_max_cost) and bool(ok.any())
+    assert torch.allclose(gk[ok], gp[ok], atol=1e-4, rtol=0)
+    assert _lib.LAUNCHES == {"rect_ncc": 0, "rect_ncc_geom": 1,
+                             "warp_transport": 1, "warp_src_frames": 0,
+                             "warp_src_disparities": 1}
 
 
 @pytest.mark.gpu
 def test_golden_pass_on_card(cuda):
-    inputs, params, _ = _golden(cuda)
+    inputs, params = _golden(cuda)[:2]
     params = dataclasses.replace(params, rect_inv_attrib=False)
-    d, nrm, cost, _ = run_patchmatch(inputs, params, 2333)
-    d, nrm, cost = d.cpu().numpy(), nrm.cpu().numpy(), cost.cpu().numpy()
-    H, W = d.shape
-    stats = {}
-    for qi, sl in enumerate([np.s_[: H // 2, : W // 2], np.s_[: H // 2, W // 2:],
-                             np.s_[H // 2:, : W // 2], np.s_[H // 2:, W // 2:]]):
-        stats[f"depth_mean_q{qi}"] = float(np.mean(d[sl]))
-        stats[f"depth_median_q{qi}"] = float(np.median(d[sl]))
-        stats[f"cost_mean_q{qi}"] = float(np.mean(cost[sl]))
-    stats["normal_mean_abs"] = float(np.mean(np.abs(nrm)))
-    stats["depth_p10"] = float(np.percentile(d, 10))
-    stats["depth_p90"] = float(np.percentile(d, 90))
-    for k, v in json.loads(FIXTURE.read_text()).items():
-        assert abs(stats[k] - v) <= max(2e-2, 2e-2 * abs(v)), (k, stats[k], v)
+    d, nrm, cost, _ = run_patchmatch(inputs, params, GOLDEN_KEY)
+    _check_against("golden_pass_stats_warp.json", d, nrm, cost)
+
+
+@pytest.mark.gpu
+def test_golden_geom_pass_on_card(cuda):
+    inputs, params, seeds, _ = golden_geom_problem(cuda)
+    d, nrm, cost, _ = run_patchmatch(inputs, params, GOLDEN_KEY, **seeds)
+    assert bool(torch.isfinite(d).all())
+    _check_against("golden_geom_pass_stats_rect.json", d, nrm, cost)

@@ -1,6 +1,8 @@
-"""The port never imports JAX or OpenCV: a tiny pass of the port runs in a
-fresh interpreter, which then must not hold ``jax`` or ``cv2`` in
-``sys.modules`` (the GPU host has neither)."""
+"""The port never imports JAX, the JAX package or OpenCV: a tiny
+photometric pass and a tiny geometric pass seeded from it run in a fresh
+interpreter, which then must not hold ``jax``, ``jaxlib``,
+``acmmp_spherical_tpu`` or ``cv2`` in ``sys.modules`` (the GPU host needs
+none of them)."""
 
 import pathlib
 import subprocess
@@ -17,7 +19,7 @@ SCRIPT = textwrap.dedent("""
     import dataclasses, sys
     import torch
     torch.set_num_threads(2)
-    from acmmp_spherical_tpu.config import PatchMatchParams
+    from acmmp_spherical_torch.config import PatchMatchParams
     from acmmp_spherical_torch.core.camera import stack_cameras
     from acmmp_spherical_torch.ops import rectify as RT
     from acmmp_spherical_torch.ops.propagate import PatchMatchInputs
@@ -26,7 +28,8 @@ SCRIPT = textwrap.dedent("""
         CubeRoom, make_ring_of_cameras, render_scene)
 
     W, H = 64, 48
-    cams = make_ring_of_cameras(3, width=W, height=H, focal=60.0)
+    cams = make_ring_of_cameras(3, width=W, height=H, focal=60.0,
+                                device="cpu")
     images, depths, _ = render_scene(cams, CubeRoom(), W, H)
     src = stack_cameras(cams[1:])
     rhw = RT.rect_shape(H, W)
@@ -42,10 +45,14 @@ SCRIPT = textwrap.dedent("""
         ref_image=imgs[0], src_images=imgs[1:], ref_cam=cams[0],
         src_cams=src, src_valid=torch.ones(2, dtype=torch.bool),
         depth_range=cams[0].depth_range)
-    depth = run_patchmatch(inputs, params, 0)[0]
+    depth, normal = run_patchmatch(inputs, params, 0)[:2]
     assert depth.shape == (H, W) and bool(torch.isfinite(depth).all())
-    bad = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("jax", "jaxlib", "cv2"))
+    geom = dataclasses.replace(inputs, src_depths=torch.from_numpy(depths[1:]))
+    gdepth = run_patchmatch(geom, params.with_geom(False), 1,
+                            seed_normal_world=normal, seed_depth=depth)[0]
+    assert bool(torch.isfinite(gdepth).all())
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "acmmp_spherical_tpu", "cv2"))
     print("FORBIDDEN", bad)
     sys.exit(1 if bad else 0)
 """)

@@ -37,7 +37,9 @@ from acmmp_spherical_torch.ops.kernels import _lib  # noqa: E402
 from acmmp_spherical_torch.ops.kernels import ncc_rect as TNR  # noqa: E402
 from acmmp_spherical_torch.ops.kernels import warp_image as TWI  # noqa: E402
 
-from torch_port_util import H, W, golden_scene, np_tree, rect_params  # noqa: E402
+from torch_port_util import (  # noqa: E402
+    H, W, golden_scene, np_tree, port_params, rect_params,
+)
 
 S2 = 2
 
@@ -63,8 +65,7 @@ def _tctx(ctx):
     d = np_tree(ctx)
     d["maps"] = [{k: m[k] for k in ("fwd_idx", "fwd_valid", "bwd_cidx", "bwd_x",
                                     "bwd_y", "bwd_valid")} for m in d["maps"]]
-    d.pop("rect_sdisp")
-    return interop.rect_context(d)
+    return interop.rect_context(d, device="cpu")
 
 
 def _packed(planes, parity):
@@ -154,7 +155,7 @@ def test_rect_ncc_plain_matches_pallas(setup, parity):
     jc = np.asarray(JNR.rect_batched_ncc(ctx, n, w, p, interpret=True,
                                          parity=parity))
     tc = TNR.rect_batched_ncc(_tctx(ctx), torch.tensor(np.asarray(n)),
-                              torch.tensor(np.asarray(w)), p,
+                              torch.tensor(np.asarray(w)), port_params(p),
                               parity=parity).numpy()
     assert tc.shape == jc.shape
     bj, bt = jc >= p.cost_max, tc >= p.cost_max
@@ -168,6 +169,7 @@ def test_rect_ncc_window_rules(setup):
     """A wider source window only adds coverage (the 128-aligned window
     placement and the [0, win_w - 2] tap rule are kept)."""
     _, _, p, ctx, planes = setup
+    p = port_params(p)
     t = _tctx(ctx)
     n, w = (torch.tensor(np.asarray(a)) for a in _packed(planes, 1))
     c384 = TNR.rect_batched_ncc(t, n, w, p, parity=1)
@@ -182,5 +184,5 @@ def test_cpu_wrappers_do_not_count_launches(setup):
     _, _, p, ctx, planes = setup
     _lib.reset_launch_counts()
     n, w = (torch.tensor(np.asarray(a)) for a in _packed(planes, 0))
-    TNR.rect_batched_ncc(_tctx(ctx), n, w, p, parity=0)
+    TNR.rect_batched_ncc(_tctx(ctx), n, w, port_params(p), parity=0)
     assert all(v == 0 for v in _lib.LAUNCHES.values())

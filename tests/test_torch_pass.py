@@ -37,7 +37,7 @@ from test_regression_fixture import (  # noqa: E402
     FIXTURE_WARP, _stats, check_against_fixture,
 )
 from torch_port_util import (  # noqa: E402
-    H, N_VIEWS, golden_scene, jax_cam_dict, np_tree, rect_params,
+    H, N_VIEWS, golden_scene, jax_cam_dict, np_tree, port_params, rect_params,
 )
 
 KEY = 2333
@@ -70,7 +70,7 @@ def _jax_inputs(cams, images):
 
 def test_full_pass_matches_reference_fixture(scene):
     cams, tcams, images, depths, _ = scene
-    params = rect_params(cams, inv_attrib=False)
+    params = port_params(rect_params(cams, inv_attrib=False))
     d, n, c, state = run_patchmatch(_port_inputs(tcams, images), params, KEY)
     assert d.shape == (H, images.shape[2]) and bool(torch.isfinite(d).all())
     check_against_fixture(_stats(d.numpy(), n.numpy(), c.numpy()),
@@ -97,17 +97,17 @@ def test_halfstep_from_identical_state(scene):
     rect["maps"] = [{k: m[k] for k in ("fwd_idx", "fwd_valid", "bwd_cidx",
                                        "bwd_x", "bwd_y", "bwd_valid")}
                     for m in rect["maps"]]
-    rect.pop("rect_sdisp")
     tin = interop.patchmatch_inputs(dict(
         ref_image=images[0], src_images=images[1:],
         ref_cam=jax_cam_dict(cams[0]),
         src_cams=jax_cam_dict(jin.src_cams), src_valid=np.asarray(jin.src_valid),
-        depth_range=np.asarray(jin.depth_range), rect=rect))
-    tstate = interop.plane_state(np_tree(state))
+        depth_range=np.asarray(jin.depth_range), rect=rect), device="cpu")
+    tstate = interop.plane_state(np_tree(state), device="cpu")
     from acmmp_spherical_torch.ops import rng as TR
 
     tk0, _ = TR.split(TR.fold_in(TR.split(TR.key(KEY))[1], 0))
-    tout = TP.checkerboard_halfstep(tstate, tin, params, tk0, 0, 0)
+    tout = TP.checkerboard_halfstep(tstate, tin, port_params(params), tk0,
+                                    0, 0)
 
     jw, tw = np.asarray(out.w), tout.w.numpy()
     j_acc = jw != np.asarray(state.w)
@@ -130,7 +130,8 @@ def test_one_iteration_pass_matches_reference(scene):
 
     jd, jn, jc, js = jax_run(_jax_inputs(cams, images), params,
                              jax.random.key(KEY))
-    td, tn, tc, ts = run_patchmatch(_port_inputs(tcams, images), params, KEY)
+    td, tn, tc, ts = run_patchmatch(_port_inputs(tcams, images),
+                                    port_params(params), KEY)
     check_against_fixture(_stats(td.numpy(), tn.numpy(), tc.numpy()),
                           _stats(np.asarray(jd), np.asarray(jn),
                                  np.asarray(jc)), rtol=2e-3, atol=2e-3)
@@ -145,8 +146,8 @@ def test_one_iteration_pass_matches_reference(scene):
 def test_unported_branches_raise(scene):
     cams, tcams, images, _, _ = scene
     inputs = _port_inputs(tcams, images)
-    base = rect_params(cams)
-    for change, slice_ in ((dict(geom_consistency=True), "slice 2"),
+    base = port_params(rect_params(cams))
+    for change, slice_ in ((dict(hierarchy=True), "slice 3"),
                            (dict(planar_prior=True), "slice 3"),
                            (dict(rect_ncc=False), "slice 5")):
         with pytest.raises(NotImplementedError, match=slice_):

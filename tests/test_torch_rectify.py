@@ -50,7 +50,7 @@ def _camera_sets():
             "jittered": (320, 240, 5, 250.0, 0.3, 0.2)}.items():
         cams = make_ring_of_cameras(n, width=w, height=h, focal=f, radius=r,
                                     look_jitter=jit)
-        tc = [interop.camera(jax_cam_dict(c)) for c in cams]
+        tc = [interop.camera(jax_cam_dict(c), device="cpu") for c in cams]
         out.append((name, cams[0], jstack(cams[1:]), tc[0], tstack(tc[1:]),
                     (h, w)))
     # forward motion: a degenerate pair the gates must reject
@@ -61,7 +61,7 @@ def _camera_sets():
 
     jf = make_camera(fwd["R"], fwd["t"], K=fwd["K"], width=96, height=64,
                      depth_min=1.2, depth_max=10.0)
-    tc = [interop.camera(jax_cam_dict(c)) for c in (cams[0], jf)]
+    tc = [interop.camera(jax_cam_dict(c), device="cpu") for c in (cams[0], jf)]
     out.append(("forward", cams[0], jstack([jf]), tc[0], tstack(tc[1:]),
                 (64, 96)))
     return out
@@ -215,7 +215,7 @@ def test_build_rect_context_matches(scene):
 
 def test_odd_frame_is_not_ported():
     cams = make_ring_of_cameras(3, width=95, height=64, focal=80.0)
-    tc = [interop.camera(jax_cam_dict(c)) for c in cams]
+    tc = [interop.camera(jax_cam_dict(c), device="cpu") for c in cams]
     with pytest.raises(NotImplementedError):
         TRT.build_rect_context(torch.zeros(64, 95), torch.zeros(2, 64, 95),
                                tc[0], tstack(tc[1:]),

@@ -82,8 +82,8 @@ def test_plane_hypotheses_and_perturbation():
 
     K = np.array([[80.0, 0, 48], [0, 80.0, 32], [0, 0, 1]])
     kw = dict(K=K, width=96, height=64, depth_min=1.2, depth_max=10.0)
-    jc, tc = jcam_(np.eye(3), np.zeros(3), **kw), tcam_(np.eye(3),
-                                                        np.zeros(3), **kw)
+    jc = jcam_(np.eye(3), np.zeros(3), **kw)
+    tc = tcam_(np.eye(3), np.zeros(3), **kw, device="cpu")
     jx, jy = jgrid(64, 96)
     tx, ty = tgrid(64, 96, "cpu")
     for seed in (0, 11):

@@ -4,7 +4,8 @@ The golden problem is the 96x64x3src ring of test_regression_fixture.py:
 its rect frame is 136x384, with a 136x256 compute grid and 32 live tiles.
 Inputs come from numpy and are handed to the JAX reference and to the port
 alike; JAX state crosses over as numpy dicts through
-``acmmp_spherical_torch.interop``.
+``acmmp_spherical_torch.interop``, onto the CPU (the port's entry points
+default to the CUDA device).
 """
 
 from __future__ import annotations
@@ -30,6 +31,13 @@ def np_tree(x):
 def jax_cam_dict(cam) -> dict:
     return {k: np.asarray(getattr(cam, k)) for k in
             ("R", "t", "K", "params", "wh", "depth_range")}
+
+
+def port_params(params):
+    """The port's PatchMatchParams with the fields of the reference's."""
+    from acmmp_spherical_torch import interop
+
+    return interop.params(dataclasses.asdict(params))
 
 
 def rect_params(cams_jax, *, inv_attrib=True, iterations=3):
@@ -65,5 +73,5 @@ def golden_scene():
     cams = make_ring_of_cameras(N_VIEWS, model=PINHOLE, width=W, height=H,
                                 focal=80.0)
     images, depths, normals = render_scene(cams, CubeRoom(), W, H)
-    tcams = [interop.camera(jax_cam_dict(c)) for c in cams]
+    tcams = [interop.camera(jax_cam_dict(c), device="cpu") for c in cams]
     return cams, tcams, images, depths, normals
