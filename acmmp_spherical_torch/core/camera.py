@@ -78,6 +78,19 @@ def camera_index(cams: Cameras, i: int) -> Camera:
                  for f in dataclasses.fields(cams) if f.name != "model"})
 
 
+def expand_views(cams: Cameras, ndim: int) -> Cameras:
+    """A view-batched camera with ``ndim`` unit axes after the view axis, so
+    its tensors broadcast against (..., ``ndim`` spatial axes) fields:
+    ``project(expand_views(cams, 2), X)`` maps (H, W, 3) points to (S, H, W)
+    coordinates."""
+    unit = (1,) * ndim
+    return dataclasses.replace(cams, **{
+        f.name: getattr(cams, f.name).reshape(
+            getattr(cams, f.name).shape[:1] + unit
+            + getattr(cams, f.name).shape[1:])
+        for f in dataclasses.fields(cams) if f.name != "model"})
+
+
 def camera_center(cam: Camera) -> torch.Tensor:
     """World-space centre ``C = -R^T t`` (reference ACMMP.cu:590-594)."""
     R, t = cam.R, cam.t

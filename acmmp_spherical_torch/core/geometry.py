@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from acmmp_spherical_torch.core.camera import Camera, SPHERE
+from acmmp_spherical_torch.core.camera import Camera, SPHERE, camera_center
 
 INVALID_DEPTH = 1.0e6
 _PARALLEL_EPS = 1.0e-6
@@ -27,22 +27,22 @@ def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _mat3_vec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(3, 3) @ (..., 3) -> (..., 3)."""
-    return torch.stack([v[..., 0] * m[i, 0] + v[..., 1] * m[i, 1]
-                        + v[..., 2] * m[i, 2] for i in range(3)], -1)
+    """(..., 3, 3) @ (..., 3) -> (..., 3), leading axes broadcast."""
+    return torch.stack([v[..., 0] * m[..., i, 0] + v[..., 1] * m[..., i, 1]
+                        + v[..., 2] * m[..., i, 2] for i in range(3)], -1)
 
 
 def _mat3t_vec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(3, 3)^T @ (..., 3) -> (..., 3)."""
-    return torch.stack([v[..., 0] * m[0, i] + v[..., 1] * m[1, i]
-                        + v[..., 2] * m[2, i] for i in range(3)], -1)
+    """(..., 3, 3)^T @ (..., 3) -> (..., 3), leading axes broadcast."""
+    return torch.stack([v[..., 0] * m[..., 0, i] + v[..., 1] * m[..., 1, i]
+                        + v[..., 2] * m[..., 2, i] for i in range(3)], -1)
 
 
 def pixel_ray(cam: Camera, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Camera-frame ray ``((x-cx)/fx, (y-cy)/fy, 1)``: ``X_cam = depth * r``."""
     _pinhole_only(cam)
-    u = (x - cam.K[0, 2]) / cam.K[0, 0]
-    v = (y - cam.K[1, 2]) / cam.K[1, 1]
+    u = (x - cam.K[..., 0, 2]) / cam.K[..., 0, 0]
+    v = (y - cam.K[..., 1, 2]) / cam.K[..., 1, 1]
     return torch.stack([u, v, torch.ones_like(u)], -1)
 
 
@@ -63,6 +63,31 @@ def depth_from_plane(cam: Camera, x, y, normal, w) -> torch.Tensor:
 def dist_to_origin(cam: Camera, x, y, depth, normal) -> torch.Tensor:
     """Plane offset ``w = -(n . X_cam)`` (reference ACMMP.cu:168-173)."""
     return -depth * _dot3(normal, pixel_ray(cam, x, y))
+
+
+def unproject_world(cam: Camera, x, y, depth) -> torch.Tensor:
+    """Pixel + depth -> world point ``R^T (depth * ray) + C`` (reference
+    Get3DPointonWorld_cu, ACMMP.cu:584-599)."""
+    X_cam = pixel_ray(cam, x, y) * depth[..., None]
+    return _mat3t_vec(cam.R, X_cam) + camera_center(cam)
+
+
+def project(cam: Camera, X: torch.Tensor):
+    """World point -> (x, y, depth) through a pinhole camera (reference
+    ACMMP.cu:632-643), |z| floored at 1e-6 in the division.  ``cam`` may be
+    view-batched with its tensors shaped to broadcast against ``X``
+    (``camera.expand_views``)."""
+    _pinhole_only(cam)
+    Xc = _mat3_vec(cam.R, X) + cam.t
+    depth = Xc[..., 2]
+    z = torch.where(depth.abs() < _PARALLEL_EPS,
+                    torch.full_like(depth, _PARALLEL_EPS), depth)
+    K = cam.K
+    x = (K[..., 0, 0] * Xc[..., 0] + K[..., 0, 1] * Xc[..., 1]
+         + K[..., 0, 2] * Xc[..., 2]) / z
+    y = (K[..., 1, 0] * Xc[..., 0] + K[..., 1, 1] * Xc[..., 1]
+         + K[..., 1, 2] * Xc[..., 2]) / z
+    return x, y, depth
 
 
 def normal_cam_to_world(cam: Camera, n: torch.Tensor) -> torch.Tensor:

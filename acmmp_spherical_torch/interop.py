@@ -17,6 +17,7 @@ import torch
 from acmmp_spherical_torch.config import PatchMatchParams
 from acmmp_spherical_torch.core.camera import Camera, PINHOLE
 from acmmp_spherical_torch.core.plane import PlaneState
+from acmmp_spherical_torch.ops.ncc import RefTapContext
 from acmmp_spherical_torch.ops.propagate import PatchMatchInputs
 from acmmp_spherical_torch.ops.rectify import PairRect, RectContext, TransportMaps
 
@@ -68,9 +69,17 @@ def rect_context(d: dict, device="cuda") -> RectContext:
         rect_sdisp=None if sdisp is None else f(sdisp))
 
 
+def ref_tap_context(d: dict, device="cuda") -> RefTapContext:
+    """RefTapContext from {offsets, ref_taps, weights, center, xs, ys}."""
+    return RefTapContext(**{k: _t(d[k], torch.float32, device) for k in (
+        "offsets", "ref_taps", "weights", "center", "xs", "ys")})
+
+
 def patchmatch_inputs(d: dict, device="cuda") -> PatchMatchInputs:
     """PatchMatchInputs from {ref_image, src_images, ref_cam: {...},
-    src_cams: {...}, src_valid, depth_range[, src_depths][, rect: {...}]}."""
+    src_cams: {...}, src_valid, depth_range[, src_depths][, rect: {...}]};
+    without ``rect`` the windowed and exact paths (or a rectified pass that
+    builds its own context in ``prepare_inputs``)."""
     f = lambda k: _t(d[k], torch.float32, device)
     rect = d.get("rect")
     return PatchMatchInputs(

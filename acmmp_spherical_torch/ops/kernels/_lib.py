@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"rect_ncc": 0, "rect_ncc_geom": 0, "warp_transport": 0,
-            "warp_src_frames": 0, "warp_src_disparities": 0}
+            "warp_src_frames": 0, "warp_src_disparities": 0,
+            "ncc_window": 0, "ncc_window_geom": 0, "window_sample": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +43,9 @@ _SIGNATURES = {
     "acmmp_warp_transport": [_P] * 6 + [_I] * 4 + [_P],
     "acmmp_warp_src_frames": [_P] * 3 + [_I] * 8 + [_P],
     "acmmp_warp_src_disparities": [_P] * 3 + [_I] * 8 + [_P],
+    "acmmp_ncc_window": [_P] * 12 + [_I] * 6 + [_F, _P],
+    "acmmp_ncc_window_geom": [_P] * 14 + [_I] * 6 + [_F] * 2 + [_P],
+    "acmmp_window_sample": [_P] * 7 + [_I] * 4 + [_F] * 2 + [_P],
 }
 
 _lib = None

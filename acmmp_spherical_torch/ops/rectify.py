@@ -431,9 +431,10 @@ def _clear_outside_window(fidx, fval, Wt, win):
 def build_transport_maps(bwd_x, bwd_y, bwd_ok, comp_hw, hw, oy, ox, attrib,
                          *, live_n=None, warp_hw=None,
                          count_claims: bool = False):
-    """Compacted transport maps (full, parity0, parity1) from the backward
-    map and the per-parity content-grid attribution ``attrib`` (two
-    (S, hb, wb) int64 grids of original flat index + 1, 0 = no claimant).
+    """Compacted transport maps (full, parity0, parity1; odd frames: full
+    only) from the backward map and the per-parity content-grid attribution
+    ``attrib`` (two (S, hb, wb) int64 grids of original flat index + 1,
+    0 = no claimant).
 
     Tiles are ranked by ``argsort(-counts, stable=True)`` and the first
     ``live_n`` kept; ``count_claims`` ranks by claims (the reference's
@@ -479,6 +480,60 @@ def build_transport_maps(bwd_x, bwd_y, bwd_ok, comp_hw, hw, oy, ox, attrib,
         return torch.gather(t, 1, tile_idx[..., None].expand(S, N, 1024)
                             ).reshape(S, N * 1024)
 
+    win_full = win_par = None
+    if warp_hw is not None:
+        win_full, win_par = warp_windows(warp_hw)
+
+    if H % 2 or W % 2:
+        # odd frames: the full map only (the half-step runs on the full grid,
+        # reference rectify.py:931-952).  The reference's odd-frame scatter
+        # keeps the last writer, the largest flat index; its inverse
+        # attribution prefers the parity-1 claimant.
+        afull = (torch.maximum(attrib[0], attrib[1]) if count_claims
+                 else torch.where(attrib[1] > 0, attrib[1], attrib[0]))
+        fc = tile_gather(afull)
+        fidx = torch.clamp(fc - 1, min=0)
+        fval = _clear_outside_window(
+            fidx, (fc > 0).float().reshape(S, N * 8, 128), W, win_full)
+        maps = [TransportMaps(fwd_idx=fidx.to(torch.int32), fwd_valid=fval,
+                              bwd_cidx=bwd_cidx, bwd_x=bwd_x, bwd_y=bwd_y,
+                              bwd_valid=okc.reshape(S, H, W))]
+    else:
+        maps = _parity_maps(attrib, tile_gather, bwd_cidx, bwd_x, bwd_y, okc,
+                            (H, W), N, win_full, win_par)
+
+    ti = tile_idx // tx
+    tj = tile_idx - ti * tx
+    tile_oy = (oy[:, None].to(torch.int64) + 8 * ti).to(torch.int32)
+    tile_ox = (ox[:, None].to(torch.int64) + 128 * tj).to(torch.int32)
+    return tuple(maps), tile_oy.contiguous(), tile_ox.contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class RectContext:
+    """Per-pass rectified working set."""
+
+    pr: PairRect
+    rect_ref: torch.Tensor   # (S, hr+2*PAD_Y, wr+2*PAD_X) clamp-warped ref
+    rect_src: torch.Tensor   # (S, ..., ...) sentinel-warped sources
+    maps: tuple              # (full, parity0, parity1) TransportMaps; odd
+    #                          frames: (full,)
+    tile_oy: torch.Tensor    # (S, N) int32 live-tile storage-row origins
+    tile_ox: torch.Tensor    # (S, N) int32
+    srow: torch.Tensor       # (S, 128): disp_lo, disp_hi, oy, ox, 1/scale
+    # geometric passes: (S, hr+2*PAD_Y, wr+2*PAD_X) source depths warped into
+    # each pair's rect frame as the implied rect disparity f*B/z_rect
+    # (SENTINEL where there is no valid source depth)
+    rect_sdisp: "torch.Tensor | None" = None
+
+
+def _parity_maps(attrib, tile_gather, bwd_cidx, bwd_x, bwd_y, okc, hw, N,
+                 win_full, win_par):
+    """(full, parity0, parity1) maps of an even frame: each colour's own
+    claimants in its packed half-grid, the full map preferring parity 1."""
+    H, W = hw
+    S = bwd_x.shape[0]
+
     def to_packed(q1):
         q = torch.clamp(q1 - 1, min=0)
         fy = q // W
@@ -490,10 +545,6 @@ def build_transport_maps(bwd_x, bwd_y, bwd_ok, comp_hw, hw, oy, ox, attrib,
         fy = q // (W // 2)
         fx = 2 * (q - fy * (W // 2)) + (p + fy) % 2
         return fy * W + fx
-
-    win_full = win_par = None
-    if warp_hw is not None:
-        win_full, win_par = warp_windows(warp_hw)
 
     pm = [to_packed(tile_gather(attrib[p])) for p in (0, 1)]
     full_idx = torch.where(pm[1] > 0, unpack_orig(pm[1], 1),
@@ -515,29 +566,7 @@ def build_transport_maps(bwd_x, bwd_y, bwd_ok, comp_hw, hw, oy, ox, attrib,
             fwd_idx=fidx_p.to(torch.int32), fwd_valid=fval_p,
             bwd_cidx=packf(bwd_cidx), bwd_x=packf(bwd_x), bwd_y=packf(bwd_y),
             bwd_valid=checkerboard_pack(okc.reshape(S, H, W), p)))
-
-    ti = tile_idx // tx
-    tj = tile_idx - ti * tx
-    tile_oy = (oy[:, None].to(torch.int64) + 8 * ti).to(torch.int32)
-    tile_ox = (ox[:, None].to(torch.int64) + 128 * tj).to(torch.int32)
-    return tuple(maps), tile_oy.contiguous(), tile_ox.contiguous()
-
-
-@dataclasses.dataclass(frozen=True)
-class RectContext:
-    """Per-pass rectified working set."""
-
-    pr: PairRect
-    rect_ref: torch.Tensor   # (S, hr+2*PAD_Y, wr+2*PAD_X) clamp-warped ref
-    rect_src: torch.Tensor   # (S, ..., ...) sentinel-warped sources
-    maps: tuple              # (full, parity0, parity1) TransportMaps
-    tile_oy: torch.Tensor    # (S, N) int32 live-tile storage-row origins
-    tile_ox: torch.Tensor    # (S, N) int32
-    srow: torch.Tensor       # (S, 128): disp_lo, disp_hi, oy, ox, 1/scale
-    # geometric passes: (S, hr+2*PAD_Y, wr+2*PAD_X) source depths warped into
-    # each pair's rect frame as the implied rect disparity f*B/z_rect
-    # (SENTINEL where there is no valid source depth)
-    rect_sdisp: "torch.Tensor | None" = None
+    return maps
 
 
 def _attribution_inverse(pr, off_y, off_x, comp_hw, hw):
@@ -605,9 +634,6 @@ def build_rect_context(ref_image, src_images, ref_cam: Camera,
     from acmmp_spherical_torch.ops.kernels.warp_image import warp_src_frames
 
     H, W = ref_image.shape
-    if H % 2 or W % 2:
-        raise NotImplementedError(
-            "odd-sized frames (full-grid fallback half-step) are not ported")
     hr, wr = rect_shape(H, W)
     hb, wb = comp_hw if comp_hw is not None else (hr, wr)
     pr = build_pair_rect(ref_cam, src_cams, (hr, wr))

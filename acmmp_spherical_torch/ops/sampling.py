@@ -3,7 +3,8 @@ acmmp_spherical_tpu/ops/sampling.py).
 
 The TPU's packed gather tables (``pack_bilinear``, ``pack_bicubic``) exist
 for XLA's per-row gather cost; here samples are indexed directly, with the
-same edge-clamp semantics and the same accumulation order.
+same edge-clamp semantics and the same accumulation order.  Only the
+pinhole samplers are ported (SPHERE wraps come with the sphere slice).
 """
 
 from __future__ import annotations
@@ -18,6 +19,66 @@ def grid_coords(height: int, width: int, device):
         torch.arange(width, dtype=torch.float32, device=device),
         indexing="ij")
     return xs, ys
+
+
+def to_index(v: torch.Tensor) -> torch.Tensor:
+    """int64 of a float tensor truncated toward zero (C's cast), clamped to
+    +-2^30 first so far-off coordinates stay defined (callers mask them
+    out), as the CUDA kernels' casts."""
+    return v.clamp(-2.0 ** 30, 2.0 ** 30).to(torch.int64)
+
+
+def _gather2d(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor):
+    """``img[..., yi, xi]``: img (Hp, Wp), or (B, Hp, Wp) with index tensors
+    of a leading B axis."""
+    if img.dim() == 2:
+        return img[yi, xi]
+    B, _, wp = img.shape
+    idx = (yi * wp + xi).reshape(B, -1)
+    return torch.gather(img.reshape(B, -1), 1, idx).reshape(yi.shape)
+
+
+def sample_bilinear(img: torch.Tensor, x, y, width, height):
+    """Bilinear sample of a pinhole frame at float coordinates (pixel centres
+    at integers, the reference's ``tex2D(img, x + 0.5, y + 0.5)``).  The +1
+    corners are edge-clamped at the logical size (width, height), which may
+    be tensors broadcasting against ``x``; ``img`` is (Hp, Wp) storage, or
+    (B, Hp, Wp) for coordinates with a leading B axis.  Returns (value,
+    valid) with valid the in-image test.  Equal to the reference's
+    ``sample_bilinear_packed(pack_bilinear(img))``."""
+    valid = (x >= 0.0) & (x < width) & (y >= 0.0) & (y < height)
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = x - x0f
+    fy = y - y0f
+    wi = torch.as_tensor(width, device=x.device).to(torch.int64)
+    hi = torch.as_tensor(height, device=x.device).to(torch.int64)
+    x0 = torch.minimum(to_index(x0f).clamp(min=0), wi - 1)
+    x1 = torch.minimum((x0 + 1).clamp(min=0), wi - 1)
+    y0 = torch.minimum(to_index(y0f).clamp(min=0), hi - 1)
+    y1 = torch.minimum((y0 + 1).clamp(min=0), hi - 1)
+    v00 = _gather2d(img, y0, x0)
+    v01 = _gather2d(img, y0, x1)
+    v10 = _gather2d(img, y1, x0)
+    v11 = _gather2d(img, y1, x1)
+    top = v00 + (v01 - v00) * fx
+    bot = v10 + (v11 - v10) * fx
+    return top + (bot - top) * fy, valid
+
+
+def sample_nearest_trunc(img: torch.Tensor, x, y, width, height):
+    """Nearest sample at C-truncated indices, the reference's depth reads
+    ``tex2D(depth, (int)x + 0.5, (int)y + 0.5)`` (ACMMP.cu:656).  Returns
+    (value, valid) with valid the truncated index in bounds; shapes as
+    :func:`sample_bilinear`."""
+    xi = to_index(x)
+    yi = to_index(y)
+    wi = torch.as_tensor(width, device=x.device).to(torch.int64)
+    hi = torch.as_tensor(height, device=x.device).to(torch.int64)
+    valid = (xi >= 0) & (xi < wi) & (yi >= 0) & (yi < hi)
+    xi = torch.minimum(xi.clamp(min=0), wi - 1)
+    yi = torch.minimum(yi.clamp(min=0), hi - 1)
+    return _gather2d(img, yi, xi), valid
 
 
 def catmull_rom_weights(t):

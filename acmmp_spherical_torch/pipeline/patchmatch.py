@@ -12,12 +12,15 @@ nothing from it).
 
 from __future__ import annotations
 
+import dataclasses
+
 from acmmp_spherical_torch.config import PatchMatchParams
 from acmmp_spherical_torch.ops import rng as R
 from acmmp_spherical_torch.ops.filter import checkerboard_median_filter
+from acmmp_spherical_torch.ops.ncc import ref_tap_context
 from acmmp_spherical_torch.ops.propagate import (
-    PatchMatchInputs, checkerboard_halfstep, extract_depth_and_normal,
-    initialize_state, prepare_inputs,
+    PatchMatchInputs, needs_tap_context, checkerboard_halfstep,
+    extract_depth_and_normal, initialize_state, prepare_inputs,
 )
 
 
@@ -26,19 +29,34 @@ def run_patchmatch(inputs: PatchMatchInputs, params: PatchMatchParams, key,
     """Run one complete pass.  ``key`` is an ``ops.rng`` key (or an int
     seed).  A geometric pass (``params.with_geom``, ``inputs.src_depths``)
     starts from the seed fields: world normals (H, W, 3) and depths (H, W)
-    of the previous pass.  Returns (depth (H, W), normal_world (H, W, 3),
-    cost (H, W), state)."""
+    of the previous pass.  With ``fast_ncc`` and ``exact_first_iteration``
+    an unseeded pass runs its first iteration on the exact path.  Returns
+    (depth (H, W), normal_world (H, W, 3), cost (H, W), state)."""
     if isinstance(key, int):
         key = R.key(key)
     inputs = prepare_inputs(inputs, params)
+    ctx = None
+    if needs_tap_context(inputs, params):
+        ctx = ref_tap_context(inputs.ref_image, inputs.ref_cam, params)
     k_init, k_iters = R.split(key)
     state = initialize_state(inputs, params, k_init,
                              seed_normal_world=seed_normal_world,
-                             seed_depth=seed_depth)
-    for i in range(params.max_iterations):
+                             seed_depth=seed_depth, ctx=ctx)
+    first_iter = 0
+    if (params.fast_ncc and params.exact_first_iteration
+            and not params.geom_consistency and params.max_iterations > 0):
+        # the first iteration after a random init sees scattered fields:
+        # the exact path, then the windowed kernel
+        params0 = dataclasses.replace(params, fast_ncc=False)
+        k0, k1 = R.split(R.fold_in(k_iters, 0))
+        for parity, k in ((0, k0), (1, k1)):
+            state = checkerboard_halfstep(state, inputs, params0, k, 0,
+                                          parity, ctx=ctx)
+        first_iter = 1
+    for i in range(first_iter, params.max_iterations):
         k0, k1 = R.split(R.fold_in(k_iters, i))
-        state = checkerboard_halfstep(state, inputs, params, k0, i, 0)
-        state = checkerboard_halfstep(state, inputs, params, k1, i, 1)
+        state = checkerboard_halfstep(state, inputs, params, k0, i, 0, ctx=ctx)
+        state = checkerboard_halfstep(state, inputs, params, k1, i, 1, ctx=ctx)
     depth, normal_world = extract_depth_and_normal(state, inputs.ref_cam)
     depth = checkerboard_median_filter(depth, state.cost,
                                        min_cost=params.filter_min_cost)

@@ -1,14 +1,18 @@
 """Where the time of a pass goes on the GPU: stage times and device time.
 
-    python -m acmmp_spherical_torch.profile_pass
+    python -m acmmp_spherical_torch.profile_pass [--windowed]
 
 On the bench scene (CubeRoom 1024x768x8src, rectified path) it runs the
 photometric pass and the geometric pass seeded from it (source depths from
-the 8 views' own photometric passes, as the bench), and for each prints:
+the 8 views' own photometric passes, as the bench); with ``--windowed`` the
+same two passes on the windowed path (``rect_ncc`` off, ``fast_ncc`` on,
+the geometric pass seeded from the windowed photometric one).  For each it
+prints:
 
 * stage times -- host clock around each stage of ``run_patchmatch``, each
   ended by ``torch.cuda.synchronize()``, mean of 3 passes after a warm one:
-  context build, init, every half-step, extraction + median filter;
+  context build, reference tap context (off the rectified path), init,
+  every half-step, extraction + median filter;
 * the unprofiled pass time (host clock, mean of 3 more passes);
 * under ``torch.profiler`` over one more pass: the device time of all
   kernels, the idle share (1 - device time / unprofiled pass time: two
@@ -34,18 +38,20 @@ import torch
 from acmmp_spherical_torch.bench import BENCH_SCENE, make_problem, source_depths
 from acmmp_spherical_torch.ops import rng as R
 from acmmp_spherical_torch.ops.filter import checkerboard_median_filter
+from acmmp_spherical_torch.ops.ncc import ref_tap_context
 from acmmp_spherical_torch.ops.propagate import (
     checkerboard_halfstep, extract_depth_and_normal, initialize_state,
-    prepare_inputs,
+    needs_tap_context, prepare_inputs,
 )
 from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch
 
 KERNELS = ("rect_ncc_kernel", "warp_transport_kernel", "warp_src_kernel",
-           "warp_disp_kernel")
+           "warp_disp_kernel", "ncc_window_kernel")
 
 
 def staged_pass(inputs, params, key, seeds):
-    """``run_patchmatch`` stage by stage; returns {stage: seconds}."""
+    """``run_patchmatch`` stage by stage (without ``exact_first_iteration``,
+    which the bench parameters leave off); returns {stage: seconds}."""
     times = {}
 
     def stage(name, fn):
@@ -58,14 +64,18 @@ def staged_pass(inputs, params, key, seeds):
 
     key = R.key(key)
     prep = stage("build_rect_context", lambda: prepare_inputs(inputs, params))
+    ctx = None
+    if needs_tap_context(prep, params):
+        ctx = stage("ref_tap_context", lambda: ref_tap_context(
+            prep.ref_image, prep.ref_cam, params))
     k_init, k_iters = R.split(key)
     state = stage("initialize_state", lambda: initialize_state(
-        prep, params, k_init, **seeds))
+        prep, params, k_init, ctx=ctx, **seeds))
     for i in range(params.max_iterations):
         k0, k1 = R.split(R.fold_in(k_iters, i))
         for parity, k in ((0, k0), (1, k1)):
             state = stage("half-steps", lambda: checkerboard_halfstep(
-                state, prep, params, k, i, parity))
+                state, prep, params, k, i, parity, ctx=ctx))
 
     def finish():
         depth, _ = extract_depth_and_normal(state, prep.ref_cam)
@@ -124,13 +134,19 @@ def trace(result, inputs, params, seeds):
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_pass needs a CUDA device")
+    windowed = "--windowed" in sys.argv[1:]
     dev = torch.device("cuda", 0)
     inputs, params = make_problem(**BENCH_SCENE, device=dev)[:2]
-    d, n = run_patchmatch(inputs, params, 3)[:2]
     geom_inputs = dataclasses.replace(inputs,
                                       src_depths=source_depths(inputs, params))
-    cases = [("photometric", inputs, params, {}),
-             ("geometric", geom_inputs, params.with_geom(multi_geometry=False),
+    kind = ""
+    if windowed:
+        params = dataclasses.replace(params, rect_ncc=False, fast_ncc=True)
+        kind = "windowed "
+    d, n = run_patchmatch(inputs, params, 3)[:2]
+    cases = [(kind + "photometric", inputs, params, {}),
+             (kind + "geometric", geom_inputs,
+              params.with_geom(multi_geometry=False),
               dict(seed_normal_world=n, seed_depth=d))]
     results = [timing(*case) for case in cases]
     for r, case in zip(results, cases):

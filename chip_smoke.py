@@ -24,9 +24,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    counters zeroed just before and read just after; its depth must be
    finite, with a median relative error < 0.0032 and below the photometric
    pass's;
-5. every kernel launched on one of the two paths, and the 96x64x3src golden
-   photometric and geometric passes match the reference's committed
-   statistics at drift_gate's 2e-2.
+5. the 96x64x3src golden photometric and geometric passes match the
+   reference's committed statistics at drift_gate's 2e-2;
+6. the windowed photometric path (``rect_ncc`` off, ``fast_ncc`` on, as the
+   pass runner runs problems that fail ``host_rectifiable``): ``ncc_window``
+   against its plain version on the packed half-grids (parity 0 with 9
+   fields, parity 1 with 5; random planes and planes around phase 3's
+   output) and ``window_sample`` on phase 3's centre-tap projections into
+   each source view; the pass once warm and three times timed (84
+   ``ncc_window`` launches each), median relative depth error < 0.0046;
+   then the windowed sampler's path: every source view warped into the
+   reference frame through that depth, its residual against the same warp
+   through the ground truth;
+7. the windowed geometric path (phase 4's source depths, seeded from phase
+   6): ``ncc_window`` with_geom against its plain version, the pass warm +
+   3 timed (56 launches each), its error below phase 6's;
+8. the exact and windowed golden passes and 95x64 odd-frame passes on the
+   rectified, windowed and exact paths against the reference's statistics
+   at 2e-2.  Every kernel must have been launched by one of the driven
+   paths.
 
 Prints the card's name and power limit, one JSON line of kernel results,
 then, last, ``{"ok": true, "device": {...}}``.  Needs CUDA; never falls back
@@ -57,6 +73,18 @@ FP32_FLOP_PER_S = 67e12
 TAP_FLOPS = 30           # fp32 operations per (candidate, pixel, tap)
 BICUBIC_FLOPS = 80       # per valid rect pixel: coordinates, weights, 16 taps
 DISP_FLOPS = 20          # per valid rect pixel: coordinates, z_rect, division
+WIN_TAP_FLOPS = 70       # ncc_window, per (view, pixel, tap): projection 43,
+#                          windowed bilinear 13, moment sums 14
+SAMPLE_FLOPS = 17        # window_sample, per sample: floors, window test,
+#                          bilinear, image test
+WINDOW_ERR_MAX = 0.0046  # windowed pass gate: see PERF.md, "Windowed pass"
+WARP_RESID_SLACK = 1.0   # greylevels over twice the ground truth's residual
+# fields evaluated on ncc_window per pass: 14 per half-step (8 candidates,
+# the current plane, 5 refinement candidates) x 6 photometric / 4 geometric
+# half-steps; the init is exact
+WIN_PHOT_LAUNCHES = 84
+WIN_GEOM_LAUNCHES = 56
+ODD_SCENE = dict(width=95, height=64, n_src=3, focal=80.0, radius=0.35)
 PHOT_KERNELS = ("rect_ncc", "warp_transport", "warp_src_frames")
 GEOM_KERNELS = ("rect_ncc_geom", "warp_transport", "warp_src_frames",
                 "warp_src_disparities")
@@ -111,17 +139,29 @@ def golden_stats(d, nrm, cost) -> dict:
     return out
 
 
-def check_golden(fixture: str, out) -> float:
-    """Worst |stat - fixture| over drift_gate's tolerance of a golden pass."""
+def check_golden(fixture: str, out, key: str | None = None) -> float:
+    """Worst |stat - fixture| over drift_gate's tolerance of a golden pass
+    (``key``: the entry of a fixture that holds several)."""
     golden = json.loads((ROOT / "tests/fixtures" / fixture).read_text())
+    if key is not None:
+        golden = golden[key]
     d, n, c = (a.cpu().numpy() for a in out[:3])
+    if not np_finite(d):
+        raise AssertionError(f"golden pass vs {fixture}: depth not finite")
     stats = golden_stats(d, n, c)
     worst = max(abs(stats[k] - v) / max(FIXTURE_TOL, FIXTURE_TOL * abs(v))
                 for k, v in golden.items())
-    log(f"golden pass vs {fixture}: worst {worst:.3f} x tolerance")
+    log(f"golden pass vs {fixture}{'' if key is None else ' ' + key}: "
+        f"worst {worst:.3f} x tolerance")
     if worst > 1.0:
         raise AssertionError(f"golden pass drifted from {fixture}")
     return worst
+
+
+def np_finite(a) -> bool:
+    import numpy as np
+
+    return bool(np.all(np.isfinite(a)))
 
 
 def median_rel_err(depth, gt) -> float:
@@ -324,6 +364,168 @@ def check_geom_kernels(inputs, params, seeds, results):
         g9["ncc_ms"], g9["ncc_plain_ms"], g9["ncc_bound"])
 
 
+def packed_ctx(ctx, parity):
+    """The reference tap context on one colour's packed half-grid."""
+    from acmmp_spherical_torch.ops.ncc import RefTapContext
+    from acmmp_spherical_torch.ops.sampling import (
+        checkerboard_coords, checkerboard_pack,
+    )
+
+    P = lambda a: checkerboard_pack(a, parity)
+    xs, ys = checkerboard_coords(*ctx.xs.shape, parity, ctx.xs.device)
+    return RefTapContext(ctx.offsets, P(ctx.ref_taps), P(ctx.weights),
+                         P(ctx.center), xs, ys)
+
+
+def plane_field(cam, depth, normal_world):
+    """(normal, w) of a depth map and its world normals in ``cam``'s frame."""
+    from acmmp_spherical_torch.core import geometry as G
+    from acmmp_spherical_torch.ops.sampling import grid_coords
+
+    xs, ys = grid_coords(*depth.shape, depth.device)
+    n = G.normalize(G.normal_world_to_cam(cam, normal_world))
+    return n, G.dist_to_origin(cam, xs, ys, depth, n)
+
+
+def check_window_case(name, inputs, ctx, n, w, p, dep):
+    """ncc_window (with ``dep``: its with_geom variant) against its plain
+    version on one plane field; returns (max error, the kernel's
+    operands)."""
+    import torch
+
+    from acmmp_spherical_torch.ops.kernels import ncc_window as NW
+
+    ops = NW._setup(inputs.src_images, inputs.src_cams, inputs.ref_cam, n, w,
+                    ctx, dep)
+    ck = NW.ncc_window(**ops, params=p)
+    cp = NW.ncc_window_plain(**ops, params=p)
+    torch.cuda.synchronize()
+    if dep is not None:
+        (ck, gk), (cp, gp) = ck, cp
+    bk, bp = ck >= p.cost_max, cp >= p.cost_max
+    agree = float((bk == bp).float().mean())
+    both = ~bk & ~bp
+    err = float((ck - cp)[both].abs().max()) if bool(both.any()) else 0.0
+    if agree < BAD_AGREE_MIN or err > COST_TOL:
+        raise AssertionError(f"ncc_window {name}: agreement {agree}, err {err}")
+    msg = (f"ncc_window {name}: bad-mask agreement {agree:.6f}, max err "
+           f"{err:.3g}, live fraction {float(both.float().mean()):.3f}")
+    if dep is not None:
+        gok = gk < p.geom_max_cost
+        if not torch.equal(gok, gp < p.geom_max_cost):
+            raise AssertionError(f"ncc_window_geom {name}: gok masks differ")
+        gerr = float((gk - gp)[gok].abs().max()) if bool(gok.any()) else 0.0
+        if gerr > GEOM_TOL:
+            raise AssertionError(f"ncc_window_geom {name}: geom err {gerr}")
+        msg += (f"; gok fraction {float(gok.float().mean()):.3f}, max geom "
+                f"err {gerr:.3g}")
+        err = max(err, gerr)
+    log(msg)
+    return err, ops
+
+
+def check_window_kernel(label, inputs, p, fields, dep):
+    """Phases 6-7: ncc_window (``dep``: with_geom) on the packed half-grids
+    of the windowed pass, parity 0 with 9 fields and parity 1 with 5, for
+    each family of full-grid plane fields in ``fields`` ({family: [(normal,
+    w), ...]}); returns its kernel entry, timed on the first field."""
+    from acmmp_spherical_torch.ops.kernels import ncc_window as NW
+    from acmmp_spherical_torch.ops.ncc import ref_tap_context
+
+    ctx = ref_tap_context(inputs.ref_image, inputs.ref_cam, p)
+    errs, first = [], None
+    for family, planes in fields.items():
+        for C, parity in ((9, 0), (5, 1)):
+            cctx = packed_ctx(ctx, parity)
+            for i in range(C):
+                n, w = packed(planes[i][0], planes[i][1], parity)
+                err, ops = check_window_case(
+                    f"{label} {family} parity{parity} field{i}", inputs,
+                    cctx, n, w, p, dep)
+                errs.append(err)
+                first = first or ops
+    S, H, W = first["src"].shape[0], *first["w"].shape
+    n_taps = first["taps"].shape[0]
+    outs = 1 if dep is None else 2
+    nb = nbytes(*(t for t in first.values() if t is not None)) \
+        + outs * S * H * W * 4
+    return kernel_entry(
+        "ncc_window.cu", "ncc_window.py:346", max(errs),
+        cuda_ms(lambda: NW.ncc_window(**first, params=p), 10),
+        cuda_ms(lambda: NW.ncc_window_plain(**first, params=p), 2),
+        bound(nb, S * H * W * n_taps * WIN_TAP_FLOPS))
+
+
+def centre_projections(inputs, depth):
+    """(x, y) (S, H, W) of each pixel of ``depth`` in every source view."""
+    import torch
+
+    from acmmp_spherical_torch.core import geometry as G
+    from acmmp_spherical_torch.core.camera import camera_index
+    from acmmp_spherical_torch.ops.sampling import grid_coords
+
+    xs, ys = grid_coords(*depth.shape, depth.device)
+    X = G.unproject_world(inputs.ref_cam, xs, ys, depth)
+    pts = [G.project(camera_index(inputs.src_cams, s), X)[:2]
+           for s in range(inputs.src_images.shape[0])]
+    return torch.stack([x for x, _ in pts]), torch.stack([y for _, y in pts])
+
+
+def check_window_sample(inputs, depth):
+    """Phase 6: window_sample against its plain version on the centre-tap
+    projections of ``depth`` into each source view; returns its entry."""
+    import torch
+
+    from acmmp_spherical_torch.ops.kernels import window_sample as WS
+
+    H, W = depth.shape
+    px, py = centre_projections(inputs, depth)
+    err = 0.0
+    for s in range(px.shape[0]):
+        args = (inputs.src_images[s], px[s], py[s])
+        v, ok = WS.windowed_sample(*args, src_h=H, src_w=W)
+        vp, okp = WS.windowed_sample_plain(*args, src_h=H, src_w=W)
+        torch.cuda.synchronize()
+        if not torch.equal(ok, okp):
+            raise AssertionError(f"window_sample view {s}: ok masks differ")
+        err = max(err, float((v - vp).abs().max()))
+        if err > COST_TOL:
+            raise AssertionError(f"window_sample view {s}: max err {err}")
+        log(f"window_sample view {s}: ok fraction "
+            f"{float(ok.float().mean()):.3f}, max err {err:.3g}")
+    src, oy, ox = WS._setup(inputs.src_images[0], px[0], py[0])
+    args = (src, oy, ox, px[0], py[0], H, W)
+    nb = nbytes(src, oy, ox, px[0], py[0]) + H * W * 5
+    return kernel_entry(
+        "window_sample.cu", "window_sample.py:144", err,
+        cuda_ms(lambda: WS.sample_window(*args), 20),
+        cuda_ms(lambda: WS.sample_window_plain(*args), 3),
+        bound(nb, H * W * SAMPLE_FLOPS))
+
+
+def warp_residual(inputs, depth):
+    """The windowed sampler's path: every source view warped into the
+    reference frame through ``depth`` (``windowed_sample``); returns the
+    median |reference - warped| over the samples that are ok in all
+    views and the fraction of such pixels."""
+    import torch
+
+    from acmmp_spherical_torch.ops.kernels.window_sample import (
+        windowed_sample,
+    )
+
+    H, W = depth.shape
+    px, py = centre_projections(inputs, depth)
+    res, all_ok = [], torch.ones_like(depth, dtype=torch.bool)
+    for s in range(px.shape[0]):
+        v, ok = windowed_sample(inputs.src_images[s], px[s], py[s],
+                                src_h=H, src_w=W)
+        res.append((v - inputs.ref_image).abs())
+        all_ok &= ok
+    r = torch.stack(res).amax(0)[all_ok]
+    return float(r.median()), float(all_ok.float().mean())
+
+
 def drive(name, kernels, fn, reps: int = 3):
     """Run a path once warm and ``reps`` times timed with the launch
     counters zeroed just before and read just after."""
@@ -371,8 +573,10 @@ def main() -> int:
         BENCH_SCENE, GOLDEN_KEY, GOLDEN_SCENE, golden_geom_problem,
         make_problem, source_depths,
     )
+    from acmmp_spherical_torch.ops import rng as R
     from acmmp_spherical_torch.ops.kernels import _lib
     from acmmp_spherical_torch.ops.propagate import prepare_inputs
+    from acmmp_spherical_torch.ops.sampling import grid_coords
     from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch
 
     smi = subprocess.run(
@@ -450,10 +654,86 @@ def main() -> int:
     gworst = check_golden("golden_geom_pass_stats_rect.json", run_patchmatch(
         gg_inputs, gg_params, GOLDEN_KEY, **gg_seeds))
 
+    # phase 6: the windowed photometric path (rect_ncc off, fast_ncc on),
+    # as the pass runner runs a problem that fails host_rectifiable
+    win_params = dataclasses.replace(params, rect_ncc=False, fast_ncc=True)
+    cam = inputs.ref_cam
+    xs, ys = grid_coords(*inputs.ref_image.shape, dev)
+    dmin, dmax = inputs.depth_range[0], inputs.depth_range[1]
+    scale = 1.0 + 0.005 * (torch.arange(9, device=dev) - 4)
+    n3, w3 = plane_field(cam, out[0], out[1])
+    results["ncc_window"] = check_window_kernel("phot", inputs, win_params, {
+        "random": [R.random_plane_hypothesis(R.key(200 + i), cam, xs, ys,
+                                             dmin, dmax) for i in range(9)],
+        "around_phase3": [(n3, w3 * scale[i]) for i in range(9)]}, None)
+    results["window_sample"] = check_window_sample(inputs, out[0])
+    wout, win = drive("windowed photometric", ("ncc_window",),
+                      lambda r: run_patchmatch(inputs, win_params, r))
+    if win["launches"]["ncc_window"] != 4 * WIN_PHOT_LAUNCHES:
+        raise AssertionError("the windowed photometric pass did not evaluate "
+                             f"{WIN_PHOT_LAUNCHES} fields on ncc_window")
+    wrel = median_rel_err(wout[0], gt[0])
+    log(f"windowed photometric median rel depth err {wrel} (rectified {rel})")
+    if wrel >= WINDOW_ERR_MAX:
+        raise AssertionError(f"windowed median rel depth err {wrel} >= "
+                             f"{WINDOW_ERR_MAX}")
+    # the windowed sampler's own path: the source views warped into the
+    # reference frame through the windowed pass's depth, against the same
+    # warp through the ground truth
+    (resid, resid_ok), samp = drive(
+        "windowed sampler", ("window_sample",),
+        lambda r: warp_residual(inputs, wout[0]))
+    gt_resid, _ = warp_residual(inputs, torch.as_tensor(gt[0], device=dev))
+    log(f"warp residual {resid} on {resid_ok:.3f} of the pixels (ground "
+        f"truth depth: {gt_resid})")
+    if not resid_ok > 0.5 or not resid <= 2.0 * gt_resid + WARP_RESID_SLACK:
+        raise AssertionError(f"warp residual {resid} ({resid_ok}) against "
+                             f"{gt_resid} at the ground truth")
+
+    # phase 7: the windowed geometric path, phase 4's source depths, seeded
+    # from phase 6
+    wg_params = win_params.with_geom(multi_geometry=False)
+    nw, ww = plane_field(cam, wout[0], wout[1])
+    results["ncc_window_geom"] = check_window_kernel(
+        "geom", geom_inputs, wg_params,
+        {"around_phase6": [(nw, ww * scale[i]) for i in range(9)]},
+        geom_inputs.src_depths)
+    wseeds = dict(seed_normal_world=wout[1], seed_depth=wout[0])
+    wgout, wgeom = drive("windowed geometric", ("ncc_window_geom",),
+                         lambda r: run_patchmatch(geom_inputs, wg_params,
+                                                  100 + r, **wseeds))
+    if wgeom["launches"]["ncc_window_geom"] != 4 * WIN_GEOM_LAUNCHES:
+        raise AssertionError("the windowed geometric pass did not evaluate "
+                             f"{WIN_GEOM_LAUNCHES} fields on ncc_window_geom")
+    wgrel = median_rel_err(wgout[0], gt[0])
+    log(f"windowed geometric median rel depth err {wgrel} (windowed "
+        f"photometric {wrel})")
+    if wgrel >= wrel:
+        raise AssertionError(f"windowed geometric median rel depth err "
+                             f"{wgrel}: not below the photometric {wrel}")
+
+    # phase 8: the exact and windowed golden passes, and odd-frame passes
+    # on each path, against the reference's statistics
+    ginputs, gparams = make_problem(**GOLDEN_SCENE, device=dev)[:2]
+    eworst = check_golden("golden_pass_stats.json", run_patchmatch(
+        ginputs, dataclasses.replace(gparams, rect_ncc=False), GOLDEN_KEY))
+    wworst = check_golden("golden_pass_stats_window.json", run_patchmatch(
+        ginputs, dataclasses.replace(gparams, rect_ncc=False, fast_ncc=True),
+        GOLDEN_KEY))
+    oinputs, oparams = make_problem(**ODD_SCENE, device=dev)[:2]
+    oworst = {path: check_golden("golden_pass_stats_odd.json", run_patchmatch(
+        oinputs, dataclasses.replace(oparams, **change), GOLDEN_KEY), path)
+        for path, change in (
+            ("rect", dict(rect_inv_attrib=True)),
+            ("window", dict(rect_ncc=False, fast_ncc=True)),
+            ("exact", dict(rect_ncc=False)))}
+
     names = ("rect_ncc", "rect_ncc_geom", "warp_transport", "warp_src_frames",
-             "warp_src_disparities")
-    kernels = [dict(name=k, launches=phot["launches"][k]
-                    + geom["launches"][k], **results[k]) for k in names]
+             "warp_src_disparities", "ncc_window", "ncc_window_geom",
+             "window_sample")
+    paths = (phot, geom, win, wgeom, samp)
+    kernels = [dict(name=k, launches=sum(p["launches"][k] for p in paths),
+                    **results[k]) for k in names]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} was never launched")
@@ -462,8 +742,16 @@ def main() -> int:
         "stages_ms": {"build_rect_context": ctx_ms,
                       "build_rect_context_geom": gctx_ms, **results["cases"]},
         "photometric": phot, "geometric": geom, "seed_passes_s": seed_s,
+        "windowed_photometric": win, "windowed_geometric": wgeom,
+        "windowed_sampler": samp, "warp_residual": resid,
+        "warp_residual_gt": gt_resid,
         "median_rel_depth_err": rel, "geom_median_rel_depth_err": grel,
+        "window_median_rel_depth_err": wrel,
+        "window_geom_median_rel_depth_err": wgrel,
         "golden_worst_over_tol": worst, "golden_geom_worst_over_tol": gworst,
+        "golden_exact_worst_over_tol": eworst,
+        "golden_window_worst_over_tol": wworst,
+        "golden_odd_worst_over_tol": oworst,
         "smoke_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,10 @@ cost_max mask identical on >= 99.9% of pixels and costs within 1e-4
 elsewhere, and in its with_geom variant the geometric planes with an
 identical geom < geom_max_cost mask and within 1e-4; warp_src_frames within
 1e-4 greylevels and warp_src_disparities equal, each with an identical
-SENTINEL mask; the golden photometric and geometric passes within
-drift_gate's 2e-2 of their fixtures.
+SENTINEL mask; ncc_window (both variants) and window_sample bit-exact; the
+golden photometric and geometric passes on the rectified path, and the
+photometric ones on the windowed and exact paths, within drift_gate's 2e-2
+of their fixtures.
 """
 
 import dataclasses
@@ -107,7 +109,8 @@ def test_cuda_kernels_match_plain(cuda):
     assert float((fk - fp)[vk].abs().max()) <= 1e-4
     assert _lib.LAUNCHES == {"rect_ncc": 1, "rect_ncc_geom": 0,
                              "warp_transport": 1, "warp_src_frames": 1,
-                             "warp_src_disparities": 0}
+                             "warp_src_disparities": 0, "ncc_window": 0,
+                             "ncc_window_geom": 0, "window_sample": 0}
 
 
 @pytest.mark.gpu
@@ -152,7 +155,8 @@ def test_geom_kernels_match_plain(cuda):
     assert torch.allclose(gk[ok], gp[ok], atol=1e-4, rtol=0)
     assert _lib.LAUNCHES == {"rect_ncc": 0, "rect_ncc_geom": 1,
                              "warp_transport": 1, "warp_src_frames": 0,
-                             "warp_src_disparities": 1}
+                             "warp_src_disparities": 1, "ncc_window": 0,
+                             "ncc_window_geom": 0, "window_sample": 0}
 
 
 @pytest.mark.gpu
@@ -169,3 +173,77 @@ def test_golden_geom_pass_on_card(cuda):
     d, nrm, cost, _ = run_patchmatch(inputs, params, GOLDEN_KEY, **seeds)
     assert bool(torch.isfinite(d).all())
     _check_against("golden_geom_pass_stats_rect.json", d, nrm, cost)
+
+
+def _golden_off_rect(device, **kw):
+    """The golden problem on the windowed (``fast_ncc``) or exact path."""
+    inputs, params = _golden(device)[:2]
+    return inputs, dataclasses.replace(params, rect_ncc=False, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_geom", [False, True], ids=["phot", "geom"])
+def test_window_kernels_match_plain(cuda, with_geom):
+    """Kernel 6 (both variants) on the golden problem's packed half-grid,
+    padded to the 8x128 tile, and kernel 7 on its centre-tap projections:
+    bit-identical to the plain versions, as on the bench shapes."""
+    from acmmp_spherical_torch.core import geometry as G
+    from acmmp_spherical_torch.core.camera import camera_index
+    from acmmp_spherical_torch.ops.kernels import ncc_window as NW
+    from acmmp_spherical_torch.ops.kernels import window_sample as WS
+    from acmmp_spherical_torch.ops.ncc import RefTapContext, ref_tap_context
+
+    inputs, params, depths, normals = _golden(cuda)
+    H, W = inputs.ref_image.shape
+    xs, ys = grid_coords(H, W, cuda)
+    cam = inputs.ref_cam
+    n = G.normal_world_to_cam(cam, torch.as_tensor(normals[0], device=cuda))
+    w = G.dist_to_origin(cam, xs, ys, torch.as_tensor(depths[0], device=cuda),
+                         n)
+    ctx = ref_tap_context(inputs.ref_image, cam, params)
+    pad = lambda a: torch.nn.functional.pad(
+        checkerboard_pack(a, 0)[None], (0, 128 - W // 2, 0, 0),
+        mode="replicate")[0]
+    ctx_p = RefTapContext(ctx.offsets, pad(ctx.ref_taps), pad(ctx.weights),
+                          pad(ctx.center[None])[0], pad(xs[None])[0],
+                          pad(ys[None])[0])
+    n_p = pad(n.movedim(-1, 0)).movedim(0, -1)
+    w_p = pad(w[None])[0]
+    dep = torch.as_tensor(depths[1:], device=cuda) if with_geom else None
+    ops = NW._setup(inputs.src_images, inputs.src_cams, cam, n_p, w_p, ctx_p,
+                    dep)
+    _lib.reset_launch_counts()
+    k = NW.ncc_window(**ops, params=params)
+    p = NW.ncc_window_plain(**ops, params=params)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p) if with_geom else ((k, p),):
+        assert torch.equal(a, b)
+    assert float((p[0] if with_geom else p).lt(params.cost_max).float()
+                 .mean()) > 0.3
+    X = G.unproject_world(cam, xs, ys, G.depth_from_plane(cam, xs, ys, n, w))
+    px, py, _ = G.project(camera_index(inputs.src_cams, 0), X)
+    sx, sy = (pad(a[None])[0] for a in (px, py))
+    v, ok = WS.windowed_sample(inputs.src_images[0], sx, sy, src_h=H,
+                               src_w=W)
+    vp, okp = WS.windowed_sample_plain(inputs.src_images[0], sx, sy,
+                                       src_h=H, src_w=W)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, okp) and bool(ok.any()) and torch.equal(v, vp)
+    assert _lib.LAUNCHES["ncc_window_geom" if with_geom else "ncc_window"] == 1
+    assert _lib.LAUNCHES["window_sample"] == 1
+
+
+@pytest.mark.gpu
+def test_windowed_golden_pass_on_card(cuda):
+    inputs, params = _golden_off_rect(cuda, fast_ncc=True)
+    _lib.reset_launch_counts()
+    d, nrm, cost, _ = run_patchmatch(inputs, params, GOLDEN_KEY)
+    assert _lib.LAUNCHES["ncc_window"] == 84
+    _check_against("golden_pass_stats_window.json", d, nrm, cost)
+
+
+@pytest.mark.gpu
+def test_exact_golden_pass_on_card(cuda):
+    inputs, params = _golden_off_rect(cuda)
+    d, nrm, cost, _ = run_patchmatch(inputs, params, GOLDEN_KEY)
+    _check_against("golden_pass_stats.json", d, nrm, cost)

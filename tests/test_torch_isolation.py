@@ -1,5 +1,6 @@
-"""The port never imports JAX, the JAX package or OpenCV: a tiny
-photometric pass and a tiny geometric pass seeded from it run in a fresh
+"""The port never imports JAX, the JAX package or OpenCV: tiny photometric
+passes and geometric passes seeded from them on the rectified, windowed and
+exact paths, an odd-frame pass and the windowed sampler run in a fresh
 interpreter, which then must not hold ``jax``, ``jaxlib``,
 ``acmmp_spherical_tpu`` or ``cv2`` in ``sys.modules`` (the GPU host needs
 none of them)."""
@@ -51,6 +52,28 @@ SCRIPT = textwrap.dedent("""
     gdepth = run_patchmatch(geom, params.with_geom(False), 1,
                             seed_normal_world=normal, seed_depth=depth)[0]
     assert bool(torch.isfinite(gdepth).all())
+    # the windowed and exact paths, photometric and geometric, and an odd
+    # frame on the exact path
+    for fast in (True, False):
+        p = dataclasses.replace(params, rect_ncc=False, fast_ncc=fast)
+        d, n = run_patchmatch(inputs, p, 0)[:2]
+        g = run_patchmatch(geom, p.with_geom(False), 1,
+                           seed_normal_world=n, seed_depth=d)[0]
+        assert bool(torch.isfinite(d).all() and torch.isfinite(g).all())
+    ocams = make_ring_of_cameras(3, width=W - 1, height=H, focal=60.0,
+                                 device="cpu")
+    oimgs = torch.from_numpy(render_scene(ocams, CubeRoom(), W - 1, H)[0])
+    odd = dataclasses.replace(inputs, ref_image=oimgs[0],
+                              src_images=oimgs[1:], ref_cam=ocams[0],
+                              src_cams=stack_cameras(ocams[1:]))
+    d = run_patchmatch(odd, dataclasses.replace(params, rect_ncc=False), 0)[0]
+    assert d.shape == (H, W - 1) and bool(torch.isfinite(d).all())
+    from acmmp_spherical_torch.ops.kernels.window_sample import windowed_sample
+    ys, xs = torch.meshgrid(torch.arange(8.0), torch.arange(128.0),
+                            indexing="ij")
+    v, ok = windowed_sample(imgs[1], xs * 0.4 + 0.3, ys * 0.9 + 1.1,
+                            src_h=H, src_w=W)
+    assert bool(ok.any())
     bad = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "acmmp_spherical_tpu", "cv2"))
     print("FORBIDDEN", bad)

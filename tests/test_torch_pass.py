@@ -148,7 +148,39 @@ def test_unported_branches_raise(scene):
     inputs = _port_inputs(tcams, images)
     base = port_params(rect_params(cams))
     for change, slice_ in ((dict(hierarchy=True), "slice 3"),
-                           (dict(planar_prior=True), "slice 3"),
-                           (dict(rect_ncc=False), "slice 5")):
+                           (dict(planar_prior=True), "slice 3")):
         with pytest.raises(NotImplementedError, match=slice_):
             TP.prepare_inputs(inputs, dataclasses.replace(base, **change))
+
+
+def test_unrectifiable_problem_runs_off_the_rect_path():
+    """A forward-motion pair fails host_rectifiable: the rectified path
+    refuses it, and the windowed and exact paths (rect_ncc off, as the pass
+    runner sets it) run it without a rectified context."""
+    from acmmp_spherical_tpu.core.camera import make_camera
+    from acmmp_spherical_tpu.utils.synthetic import (
+        CubeRoom, make_ring_of_cameras, render_scene,
+    )
+
+    cams = make_ring_of_cameras(2, width=96, height=64, focal=80.0)
+    fwd = jax_cam_dict(cams[1])
+    fwd["t"] = np.asarray(cams[0].t) + np.array([0.0, 0.0, -0.3], np.float32)
+    jcams = [cams[0], make_camera(fwd["R"], fwd["t"], K=fwd["K"], width=96,
+                                  height=64, depth_min=1.2, depth_max=10.0)]
+    tc = [interop.camera(jax_cam_dict(c), device="cpu") for c in jcams]
+    images, _, _ = render_scene(jcams, CubeRoom(), 96, 64)
+    imgs = torch.from_numpy(images)
+    inputs = TP.PatchMatchInputs(
+        ref_image=imgs[0], src_images=imgs[1:], ref_cam=tc[0],
+        src_cams=tstack(tc[1:]), src_valid=torch.ones(1, dtype=torch.bool),
+        depth_range=tc[0].depth_range)
+    with pytest.raises(ValueError, match="host_rectifiable"):
+        TP.prepare_inputs(inputs, port_params(rect_params(cams)))
+    for fast in (True, False):
+        params = dataclasses.replace(port_params(rect_params(cams)),
+                                     rect_ncc=False, fast_ncc=fast,
+                                     max_iterations=1)
+        assert TP.prepare_inputs(inputs, params).rect is None
+        d, _, c, _ = run_patchmatch(inputs, params, KEY)
+        assert d.shape == (H, 96) and bool(torch.isfinite(d).all())
+        assert bool(torch.isfinite(c).all())

@@ -213,10 +213,30 @@ def test_build_rect_context_matches(scene):
         assert (tm.bwd_cidx.numpy() == np.asarray(jm.bwd_cidx)).mean() > 0.999
 
 
-def test_odd_frame_is_not_ported():
-    cams = make_ring_of_cameras(3, width=95, height=64, focal=80.0)
-    tc = [interop.camera(jax_cam_dict(c), device="cpu") for c in cams]
-    with pytest.raises(NotImplementedError):
-        TRT.build_rect_context(torch.zeros(64, 95), torch.zeros(2, 64, 95),
-                               tc[0], tstack(tc[1:]),
-                               (torch.tensor(1.2), torch.tensor(10.0)))
+@pytest.mark.parametrize("inv", [True, False], ids=["inv_attrib", "scatter"])
+def test_odd_frame_context_has_the_full_map_only(inv):
+    """An odd frame (95x64) builds only the full-grid map, as the reference
+    does (its half-step then runs on the full grid): same tile origins,
+    maps equal on >= 99.9% of entries, as test_build_rect_context_matches."""
+    from torch_port_util import rect_params
+
+    cams, tcams, images, _, _ = golden_scene(95, 64)
+    p = rect_params(cams, hw=(64, 95))
+    dr = (cams[0].depth_range[0], cams[0].depth_range[1])
+    kw = dict(comp_hw=p.rect_comp_hw, live_n=p.rect_live_n,
+              warp_hw=p.rect_warp_hw, inv_attrib=inv)
+    ref = JRT.build_rect_context(jnp.asarray(images[0]),
+                                 jnp.asarray(images[1:]), cams[0],
+                                 jstack(cams[1:]), dr, **kw)
+    t = TRT.build_rect_context(
+        torch.from_numpy(images[0]), torch.from_numpy(images[1:]), tcams[0],
+        tstack(tcams[1:]), (tcams[0].depth_range[0], tcams[0].depth_range[1]),
+        **kw)
+    assert len(ref.maps) == 1 and len(t.maps) == 1
+    np.testing.assert_array_equal(t.tile_oy.numpy(), np.asarray(ref.tile_oy))
+    np.testing.assert_array_equal(t.tile_ox.numpy(), np.asarray(ref.tile_ox))
+    tm, jm = t.maps[0], ref.maps[0]
+    assert tm.bwd_valid.shape == (3, 64, 95)
+    for f in ("fwd_idx", "fwd_valid", "bwd_cidx"):
+        assert (getattr(tm, f).numpy() == np.asarray(getattr(jm, f))
+                ).mean() > 0.999, f

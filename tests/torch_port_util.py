@@ -40,15 +40,15 @@ def port_params(params):
     return interop.params(dataclasses.asdict(params))
 
 
-def rect_params(cams_jax, *, inv_attrib=True, iterations=3):
+def rect_params(cams_jax, *, inv_attrib=True, iterations=3, hw=(H, W)):
     """The golden problem's rect+warp PatchMatchParams, both bf16 packs off
-    (host mirrors from the reference package)."""
+    (host mirrors from the reference package); ``hw`` the frame size."""
     from acmmp_spherical_tpu.config import PatchMatchParams
     from acmmp_spherical_tpu.core.camera import stack_cameras
     from acmmp_spherical_tpu.ops import rectify as RT
 
     src = stack_cameras(cams_jax[1:])
-    rhw = RT.rect_shape(H, W)
+    rhw = RT.rect_shape(*hw)
     chw = RT.rect_comp_shape(cams_jax[0], src, rhw)
     iwin = RT.rect_init_window(cams_jax[0], src, rhw)
     return dataclasses.replace(
@@ -61,17 +61,50 @@ def rect_params(cams_jax, *, inv_attrib=True, iterations=3):
         rect_backmap_pack=False)
 
 
-def golden_scene():
+def golden_scene(width=W, height=H, n_views=N_VIEWS, focal=80.0):
     """(JAX cameras, torch cameras, images, depths, normals) of the golden
-    ring, rendered by the reference package."""
+    ring (or a ring of another size), rendered by the reference package."""
     from acmmp_spherical_tpu.core.camera import PINHOLE
     from acmmp_spherical_tpu.utils.synthetic import (
         CubeRoom, make_ring_of_cameras, render_scene,
     )
     from acmmp_spherical_torch import interop
 
-    cams = make_ring_of_cameras(N_VIEWS, model=PINHOLE, width=W, height=H,
-                                focal=80.0)
-    images, depths, normals = render_scene(cams, CubeRoom(), W, H)
+    cams = make_ring_of_cameras(n_views, model=PINHOLE, width=width,
+                                height=height, focal=focal)
+    images, depths, normals = render_scene(cams, CubeRoom(), width, height)
     tcams = [interop.camera(jax_cam_dict(c), device="cpu") for c in cams]
     return cams, tcams, images, depths, normals
+
+
+def jax_inputs(cams, images, src_depths=None):
+    """The reference's PatchMatchInputs of a rendered ring."""
+    import jax.numpy as jnp
+
+    from acmmp_spherical_tpu.core.camera import stack_cameras
+    from acmmp_spherical_tpu.ops.propagate import PatchMatchInputs
+
+    imgs = jnp.asarray(images)
+    return PatchMatchInputs(
+        ref_image=imgs[0], src_images=imgs[1:], ref_cam=cams[0],
+        src_cams=stack_cameras(cams[1:]),
+        src_valid=jnp.ones(len(cams) - 1, bool),
+        depth_range=jnp.asarray(np.asarray(cams[0].depth_range), jnp.float32),
+        src_depths=None if src_depths is None else jnp.asarray(src_depths))
+
+
+def port_inputs(tcams, images, src_depths=None):
+    """The port's PatchMatchInputs of the same ring, on the CPU."""
+    import torch
+
+    from acmmp_spherical_torch.core.camera import stack_cameras
+    from acmmp_spherical_torch.ops.propagate import PatchMatchInputs
+
+    imgs = torch.from_numpy(images)
+    return PatchMatchInputs(
+        ref_image=imgs[0], src_images=imgs[1:], ref_cam=tcams[0],
+        src_cams=stack_cameras(tcams[1:]),
+        src_valid=torch.ones(len(tcams) - 1, dtype=torch.bool),
+        depth_range=tcams[0].depth_range,
+        src_depths=None if src_depths is None else torch.from_numpy(
+            np.ascontiguousarray(src_depths)))
