@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    started together; build seconds printed);
 2. check the photometric pass's kernels against their plain-torch versions
    on the card, at the shapes of the 1024x768x8src photometric pass (the
-   C=9 and C=5 parity evaluations and the C=1 init evaluation);
+   C=9 and C=5 parity evaluations and the C=1 init evaluation); rect_ncc
+   (both variants, phase 4 too) must equal its plain version bit for bit;
 3. drive the photometric path -- ``pipeline.patchmatch.run_patchmatch`` on
    the CubeRoom 1024x768x8src scene -- once warm and three times timed, with
    the launch counters zeroed just before and read just after; its median
@@ -60,6 +61,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 COST_TOL = 1e-4          # |kernel - plain| on costs where both agree on `bad`
+#                          (rect_ncc must besides be bit-identical)
 BAD_AGREE_MIN = 0.999    # fraction of pixels whose `bad` decision agrees
 GEOM_TOL = 1e-4          # |kernel - plain| on geom costs; gok mask identical
 WARP_TOL = 1e-4          # greylevels, valid samples; SENTINEL mask identical
@@ -225,6 +227,9 @@ def check_rect_case(name, rect, normals, ws, parity, p, with_geom):
             f"{float(gok.float().mean()):.3f}, max geom err {gerr:.3g}")
         if gerr > GEOM_TOL:
             raise AssertionError(f"rect_ncc_geom {name}: geom err {gerr}")
+    if not (torch.equal(ck, cp) and (not with_geom or torch.equal(gk, gp))):
+        raise AssertionError(f"rect_ncc {name}: not bit-identical to the "
+                             "plain version")
     # the work this run's data needs: every candidate pixel of a live tile
     # runs the taps; every input is read and every output written once
     C, S, K8, _ = D.shape
@@ -257,6 +262,23 @@ def kernel_entry(route_src, replaces, max_abs_err, ms, plain_ms, bnd):
                 replaces=f"acmmp_spherical_tpu/ops/pallas/{replaces}",
                 max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+
+
+def rect_entry(results, names, prefix):
+    """The kernel entry of rect_ncc (``prefix`` "ncc") or warp_transport
+    ("transport") over the rectified cases ``names``: the first case's
+    times, and every case's under ``cases``."""
+    cs = [results["cases"][n] for n in names]
+    e = kernel_entry(
+        "rect_ncc.cu" if prefix == "ncc" else "warp_transport.cu",
+        "ncc_rect.py:614" if prefix == "ncc" else "ncc_rect.py:460",
+        max(c[f"{prefix}_max_abs_err"] for c in cs), cs[0][f"{prefix}_ms"],
+        cs[0][f"{prefix}_plain_ms"], cs[0][f"{prefix}_bound"])
+    e["cases"] = {n: dict(ms=c[f"{prefix}_ms"], plain_ms=c[f"{prefix}_plain_ms"],
+                          bound_ms=c[f"{prefix}_bound"][0],
+                          bound_by=c[f"{prefix}_bound"][1])
+                  for n, c in zip(names, cs)}
+    return e
 
 
 def check_warp(name, fn, plain, args, valid_flops, tol, results):
@@ -314,15 +336,9 @@ def check_phot_kernels(inputs, params, results):
         case = check_rect_case(name, rect, n, w, parity, p, False)
         results.setdefault("cases", {})[name] = case
         log(f"{name}: {case}")
-    c9 = results["cases"]["C9_parity0"]
-    results["warp_transport"] = kernel_entry(
-        "warp_transport.cu", "ncc_rect.py:460",
-        max(c["transport_max_abs_err"] for c in results["cases"].values()),
-        c9["transport_ms"], c9["transport_plain_ms"], c9["transport_bound"])
-    results["rect_ncc"] = kernel_entry(
-        "rect_ncc.cu", "ncc_rect.py:614",
-        max(c["ncc_max_abs_err"] for c in results["cases"].values()),
-        c9["ncc_ms"], c9["ncc_plain_ms"], c9["ncc_bound"])
+    names = ("C9_parity0", "C5_parity1", "C1_init")
+    results["warp_transport"] = rect_entry(results, names, "transport")
+    results["rect_ncc"] = rect_entry(results, names, "ncc")
 
 
 def check_geom_kernels(inputs, params, seeds, results):
@@ -356,12 +372,8 @@ def check_geom_kernels(inputs, params, seeds, results):
         case = check_rect_case(name, rect, nn, ww, parity, params, True)
         results["cases"][name] = case
         log(f"{name}: {case}")
-    g9 = results["cases"]["geom_C9_parity0"]
-    results["rect_ncc_geom"] = kernel_entry(
-        "rect_ncc.cu", "ncc_rect.py:614",
-        max(results["cases"][k]["ncc_max_abs_err"]
-            for k in ("geom_C9_parity0", "geom_C5_parity1")),
-        g9["ncc_ms"], g9["ncc_plain_ms"], g9["ncc_bound"])
+    results["rect_ncc_geom"] = rect_entry(
+        results, ("geom_C9_parity0", "geom_C5_parity1"), "ncc")
 
 
 def packed_ctx(ctx, parity):

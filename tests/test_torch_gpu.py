@@ -6,11 +6,9 @@ JAX, so they also run on a GPU host without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances (as chip_smoke.py): warp_transport bit-exact; rect_ncc with the
-cost_max mask identical on >= 99.9% of pixels and costs within 1e-4
-elsewhere, and in its with_geom variant the geometric planes with an
-identical geom < geom_max_cost mask and within 1e-4; warp_src_frames within
-1e-4 greylevels and warp_src_disparities equal, each with an identical
+Tolerances (as chip_smoke.py): warp_transport bit-exact; rect_ncc (both
+variants, every candidate count and tap pattern) bit-exact; warp_src_frames
+within 1e-4 greylevels and warp_src_disparities equal, each with an identical
 SENTINEL mask; ncc_window (both variants) and window_sample bit-exact; the
 golden photometric and geometric passes on the rectified path, and the
 photometric ones on the windowed and exact paths, within drift_gate's 2e-2
@@ -97,9 +95,7 @@ def test_cuda_kernels_match_plain(cuda):
             rect.rect_src, D, AB, maps.fwd_valid, params)
     ck, cp = NR.rect_ncc(*args), NR.rect_ncc_plain(*args)
     torch.cuda.synchronize()
-    bk, bp = ck >= params.cost_max, cp >= params.cost_max
-    assert float((bk == bp).float().mean()) >= 0.999
-    assert torch.allclose(ck[~bk & ~bp], cp[~bk & ~bp], atol=1e-4, rtol=0)
+    assert torch.equal(ck, cp)
     wargs = (inputs.src_images, rect.pr.H1inv, inputs.src_cams.width,
              inputs.src_cams.height, rect_shape(H, W), params.rect_warp_hw)
     fk, fp = WI.warp_src_frames(*wargs), WI.warp_src_frames_plain(*wargs)
@@ -147,16 +143,50 @@ def test_geom_kernels_match_plain(cuda):
     ck, gk = NR.rect_ncc(*args, sdisp=rect.rect_sdisp)
     cp, gp = NR.rect_ncc_plain(*args, sdisp=rect.rect_sdisp)
     torch.cuda.synchronize()
-    bk, bp = ck >= params.cost_max, cp >= params.cost_max
-    assert float((bk == bp).float().mean()) >= 0.999
-    assert torch.allclose(ck[~bk & ~bp], cp[~bk & ~bp], atol=1e-4, rtol=0)
-    ok = gk < params.geom_max_cost
-    assert torch.equal(ok, gp < params.geom_max_cost) and bool(ok.any())
-    assert torch.allclose(gk[ok], gp[ok], atol=1e-4, rtol=0)
+    assert torch.equal(ck, cp) and torch.equal(gk, gp)
+    assert bool((gk < params.geom_max_cost).any())
     assert _lib.LAUNCHES == {"rect_ncc": 0, "rect_ncc_geom": 1,
                              "warp_transport": 1, "warp_src_frames": 0,
                              "warp_src_disparities": 1, "ncc_window": 0,
                              "ncc_window_geom": 0, "window_sample": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["11x11s2", "7x7s1"])
+@pytest.mark.parametrize("with_geom", [False, True], ids=["phot", "geom"])
+@pytest.mark.parametrize("C", [1, 3, 5, 9])
+def test_rect_ncc_chunks_match_plain(cuda, C, with_geom, pattern):
+    """rect_ncc walks the candidates in chunks: bit-identical to the plain
+    version for C at and across the chunk edges, both variants, on the
+    default tap pattern and on 7x7 at stride 1 (49 taps, the instantiation
+    with runtime tap bounds)."""
+    from acmmp_spherical_torch.core import geometry as G
+
+    inputs, params, seeds, _ = golden_geom_problem(cuda)
+    if pattern == "7x7s1":
+        params = dataclasses.replace(params, patch_size=7, radius_increment=1)
+    rect = prepare_inputs(inputs, params).rect
+    H, W = inputs.ref_image.shape
+    xs, ys = grid_coords(H, W, cuda)
+    n = G.normal_world_to_cam(inputs.ref_cam, seeds["seed_normal_world"])
+    w = G.dist_to_origin(inputs.ref_cam, xs, ys, seeds["seed_depth"], n)
+    normals = torch.stack([checkerboard_pack(n.movedim(-1, 0), 0).movedim(0, -1)
+                           ] * C)
+    ws = torch.stack([checkerboard_pack(w * (1.0 + 0.005 * (k - C // 2)), 0)
+                      for k in range(C)])
+    maps = rect.maps[1]
+    D, AB = NR.warp_transport(*NR.coefficient_tables(rect, maps, normals, ws),
+                              maps.fwd_idx, maps.fwd_valid)
+    args = (rect.srow, rect.tile_oy, rect.tile_ox, rect.rect_ref,
+            rect.rect_src, D, AB, maps.fwd_valid, params)
+    kw = dict(sdisp=rect.rect_sdisp) if with_geom else {}
+    _lib.reset_launch_counts()
+    k, p = NR.rect_ncc(*args, **kw), NR.rect_ncc_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p) if with_geom else ((k, p),):
+        assert a.shape == (C, *maps.fwd_valid.shape) and torch.equal(a, b)
+    assert bool(((p[0] if with_geom else p) < params.cost_max).any())
+    assert _lib.LAUNCHES["rect_ncc_geom" if with_geom else "rect_ncc"] == 1
 
 
 @pytest.mark.gpu

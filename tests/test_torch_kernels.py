@@ -180,6 +180,42 @@ def test_rect_ncc_window_rules(setup):
     assert torch.allclose(c384[ok384 & ok512], c512[ok384 & ok512], atol=1e-5)
 
 
+@pytest.mark.parametrize("with_geom", [False, True], ids=["phot", "geom"])
+def test_rect_ncc_plain_candidates_are_independent(setup, with_geom):
+    """The property the chunked CUDA kernel relies on: on the golden
+    context, a C=5 batch equals its five C=1 evaluations bit for bit, so a
+    kernel may regroup the candidates (the with_geom variant against a
+    seeded source-disparity plane with SENTINEL holes)."""
+    from acmmp_spherical_torch.ops.rectify import SENTINEL
+
+    _, _, p, ctx, planes = setup
+    p = port_params(p)
+    t = _tctx(ctx)
+    n, w = (torch.tensor(np.asarray(a)) for a in _packed(planes, 0))
+    normals = torch.stack([n[0]] * 5)
+    ws = torch.stack([w[0] * (1.0 + 0.01 * k) for k in range(-2, 3)])
+    maps = t.maps[1]
+    D, AB = TNR.warp_transport(*TNR.coefficient_tables(t, maps, normals, ws),
+                               maps.fwd_idx, maps.fwd_valid)
+    kw = {}
+    if with_geom:
+        rng = np.random.default_rng(11)
+        sdisp = rng.uniform(0.0, 60.0, t.rect_ref.shape).astype(np.float32)
+        sdisp[rng.random(sdisp.shape) < 0.2] = SENTINEL
+        kw = dict(sdisp=torch.from_numpy(sdisp))
+    frames = (t.srow, t.tile_oy, t.tile_ox, t.rect_ref, t.rect_src)
+    batch = TNR.rect_ncc(*frames, D, AB, maps.fwd_valid, p, **kw)
+    singles = [TNR.rect_ncc(*frames, D[c:c + 1], AB[c:c + 1], maps.fwd_valid,
+                            p, **kw) for c in range(5)]
+    planes_b = batch if with_geom else (batch,)
+    for i, plane in enumerate(planes_b):
+        one = torch.cat([s[i] if with_geom else s for s in singles])
+        assert torch.equal(plane, one)
+    assert float((planes_b[0] < p.cost_max).float().mean()) > 0.05
+    if with_geom:
+        assert bool((batch[1] < p.geom_max_cost).any())
+
+
 def test_cpu_wrappers_do_not_count_launches(setup):
     _, _, p, ctx, planes = setup
     _lib.reset_launch_counts()
