@@ -43,7 +43,7 @@
 //   taps overlap.  The gather's dependent chain (coordinate, floor, window
 //   test, load, interpolation) is latency-bound: a chunk of 3 at 64
 //   registers (4 blocks, 32 warps per SM) measured faster than chunks of 9
-//   (128 registers) or 5 (80), see tune_rect_ncc.py.
+//   (128 registers) or 5 (80); PERF.md records the measurement.
 // * The weight comes from staged ep = exp(clip(ref) * inv_2sc) and
 //   en = 1 / ep, both computed once at staging with the same IEEE
 //   operations as the reference's ep and en (ncc_rect.py:210-211).
@@ -54,15 +54,16 @@
 //   template instantiation, so dx, the shared-memory tap offsets and the
 //   tap count are constants and the row of 6 taps x the chunk is unrolled.
 //   Any other pattern the wrapper accepts (radius <= 8, <= 64 taps) runs
-//   through the instantiation with runtime bounds: the same kernel.
-// * kThreads = 256 with __launch_bounds__ sized from ~10 registers per
-//   live candidate (ptxas.log beside the library has the count and the
-//   spills).
+//   through the instantiation with runtime bounds: the same kernel, which
+//   at the default pattern measured 14-30% slower than the unrolled one.
+// * kThreads = 256 (two rows of the tile at a time) with
+//   __launch_bounds__(256, 4), which caps a thread at 64 registers
+//   (ptxas.log beside the library has the count and the spills).
 // * Only the band the taps read is staged: (8 + 2r) x (128 + 2r) of ref,
 //   ep and en, at a fixed row stride of 144 floats.
 // * A warp whose lanes all fail the centre test for every candidate of the
 //   chunk (their result is cost_max whatever the taps say) skips the taps
-//   (RECT_NCC_VOTE); a candidate that fails its centre test takes no tap.
+//   (a warp vote); a candidate that fails its centre test takes no tap.
 //
 // with_geom variant (kGeom, entry acmmp_rect_ncc_geom): a second plane, the
 // fused geometric-consistency cost of each candidate,
@@ -71,25 +72,10 @@
 // floored source column on the pixel's own row -- is not SENTINEL, else
 // geom_max_cost.  The TPU kernel double-buffers a 24 x win_w disparity
 // window by DMA; here it is one global load per (candidate, pixel).
-//
-// RECT_NCC_CHUNK, RECT_NCC_ROWS, RECT_NCC_MIN_BLOCKS (the second
-// __launch_bounds__ argument) and RECT_NCC_VOTE are compile-time tuning
-// constants; acmmp_spherical_torch/tune_rect_ncc.py builds and times other
-// values.  The defaults are the measured choice.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <cstdint>
-
-#ifndef RECT_NCC_CHUNK
-#define RECT_NCC_CHUNK 3
-#endif
-#ifndef RECT_NCC_ROWS
-#define RECT_NCC_ROWS 2
-#endif
-#ifndef RECT_NCC_VOTE
-#define RECT_NCC_VOTE 1
-#endif
 
 namespace {
 
@@ -100,20 +86,12 @@ constexpr float kSentinelThresh = -0.5f;
 constexpr int kMaxTaps = 64;
 constexpr int kMaxRadius = 8;
 constexpr int kBW = kTileW + 2 * kMaxRadius;   // staged band row stride
-constexpr int kChunk = RECT_NCC_CHUNK;
-constexpr int kRows = RECT_NCC_ROWS;
+constexpr int kChunk = 3;       // candidates live per thread
+constexpr int kRows = 2;        // tile rows per block at a time
 constexpr int kThreads = kRows * kTileW;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroups = kTileH / kRows;
-static_assert(kTileH % kRows == 0, "RECT_NCC_ROWS must divide 8");
-static_assert(kChunk >= 1 && kChunk <= 16, "RECT_NCC_CHUNK out of range");
-#ifdef RECT_NCC_MIN_BLOCKS
-constexpr int kMinBlocks = RECT_NCC_MIN_BLOCKS;
-#else
-// ~10 registers per live candidate plus ~32 shared ones
-constexpr int kMinBlocks = 65536 / (kThreads * (10 * kChunk + 32)) < 1
-                               ? 1 : 65536 / (kThreads * (10 * kChunk + 32));
-#endif
+constexpr int kMinBlocks = 4;   // blocks per SM: 64 registers a thread
 
 struct Args {
   const float* srow;
@@ -260,9 +238,7 @@ __device__ __forceinline__ void run_chunk(const Args& a, const Block& b,
     for (int j = 0; j < CB; ++j)
       s_bw[j] = s_r[j] = s_rr[j] = s_s[j] = s_ss[j] = s_rs[j] = 0.0f;
 
-    bool run_taps = true;
-    if (RECT_NCC_VOTE) run_taps = __any_sync(0xffffffffu, any_ok);
-    if (run_taps) {
+    if (__any_sync(0xffffffffu, any_ok)) {
       // the tap row's source row, carried from row to row so that a tap's
       // address is one multiply-add on it
       const float* tap_row = src_row - rad * a.Wp;

@@ -9,15 +9,10 @@ entry point returns ``cudaGetLastError()`` after its launch.
 
 ``LAUNCHES`` counts kernel launches per wrapper (and nothing else): a run can
 show that its main path went through the kernels.
-
-``variant_library`` builds the same sources with extra ``-D`` macros (a
-kernel's compile-time tuning constants) and ``use_library`` makes the
-wrappers launch from it; ``tune_rect_ncc.py`` times variants this way.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -68,10 +63,9 @@ def _nvcc() -> str:
     return path
 
 
-def _build(defines: tuple[str, ...] = ()) -> pathlib.Path:
-    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+def _build() -> pathlib.Path:
     sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(flags).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.glob("*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -83,7 +77,7 @@ def _build(defines: tuple[str, ...] = ()) -> pathlib.Path:
     tmp_dir = pathlib.Path(tempfile.mkdtemp(dir=out_dir))
     nvcc = _nvcc()
     objs = [tmp_dir / (src.stem + ".o") for src in sources]
-    procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(obj),
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
                                str(src)], stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for src, obj in zip(sources, objs)]
@@ -111,41 +105,20 @@ def _build(defines: tuple[str, ...] = ()) -> pathlib.Path:
     return lib_path
 
 
-def _load(path: pathlib.Path) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(path))
-    for name, args in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    lib.acmmp_error_string.argtypes = [ctypes.c_int]
-    lib.acmmp_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def library() -> ctypes.CDLL:
     """The kernel library, built on first call (``ptxas.log`` beside it holds
     each kernel's registers and spills)."""
     global _lib
     if _lib is None:
-        _lib = _load(_build())
+        lib = ctypes.CDLL(str(_build()))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        lib.acmmp_error_string.argtypes = [ctypes.c_int]
+        lib.acmmp_error_string.restype = ctypes.c_char_p
+        _lib = lib
     return _lib
-
-
-def variant_library(*defines: str) -> ctypes.CDLL:
-    """The library built with ``-D`` macros such as ``RECT_NCC_CHUNK=5``
-    (into its own build directory, with its own ``ptxas.log``)."""
-    return _load(_build(tuple(defines)))
-
-
-@contextlib.contextmanager
-def use_library(lib: ctypes.CDLL):
-    """Launch the wrappers' kernels from ``lib`` inside the block."""
-    global _lib
-    saved, _lib = _lib, lib
-    try:
-        yield lib
-    finally:
-        _lib = saved
 
 
 def check(err: int, name: str) -> None:

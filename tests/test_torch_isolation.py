@@ -1,7 +1,7 @@
 """The port never imports JAX, the JAX package or OpenCV: tiny photometric
 passes and geometric passes seeded from them on the rectified, windowed and
 exact paths, an odd-frame pass and the windowed sampler run in a fresh
-interpreter, which also imports the profiling and tuning scripts and then
+interpreter, which also imports the profiling script and then
 must not hold ``jax``, ``jaxlib``, ``acmmp_spherical_tpu`` or ``cv2`` in
 ``sys.modules`` (the GPU host needs none of them)."""
 
@@ -75,7 +75,6 @@ SCRIPT = textwrap.dedent("""
                             src_h=H, src_w=W)
     assert bool(ok.any())
     import acmmp_spherical_torch.profile_pass  # noqa: F401
-    import acmmp_spherical_torch.tune_rect_ncc  # noqa: F401
     bad = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "acmmp_spherical_tpu", "cv2"))
     print("FORBIDDEN", bad)
