@@ -43,8 +43,8 @@ _SIGNATURES = {
     "acmmp_warp_transport": [_P] * 6 + [_I] * 4 + [_P],
     "acmmp_warp_src_frames": [_P] * 3 + [_I] * 8 + [_P],
     "acmmp_warp_src_disparities": [_P] * 3 + [_I] * 8 + [_P],
-    "acmmp_ncc_window": [_P] * 12 + [_I] * 6 + [_F, _P],
-    "acmmp_ncc_window_geom": [_P] * 14 + [_I] * 6 + [_F] * 2 + [_P],
+    "acmmp_ncc_window": [_P] * 12 + [_I] * 7 + [_F, _P],
+    "acmmp_ncc_window_geom": [_P] * 14 + [_I] * 7 + [_F] * 2 + [_P],
     "acmmp_window_sample": [_P] * 7 + [_I] * 4 + [_F] * 2 + [_P],
 }
 

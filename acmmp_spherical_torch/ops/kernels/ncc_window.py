@@ -1,21 +1,26 @@
-"""Windowed multi-view bilateral-NCC of one plane field on the unrectified
-pinhole path (counterpart of acmmp_spherical_tpu/ops/pallas/ncc_window.py).
+"""Windowed multi-view bilateral-NCC of a batch of plane fields on the
+unrectified pinhole path (counterpart of
+acmmp_spherical_tpu/ops/pallas/ncc_window.py, which evaluates one field per
+call).
 
-Per (source view, 8x128 tile of the evaluation grid) a 40x384 source window
-is placed from the centre-tap projections (``compute_center_windows``,
+Per (field, source view, 8x128 tile of the evaluation grid) a 40x384 source
+window is placed from the centre-tap projections (``compute_center_windows``,
 plain torch as in the reference's XLA pre-pass); every tap's plane depth is
 moved into the source frame with the pair's relative pose
 (``pack_pair_params``), projected and sampled bilinearly *from that window*:
 a sample is used only where it lies in the image and its corner lies in the
 window.  The window is part of the algorithm (ROADMAP, "the 8x128 tile keeps
-its meaning"), so both versions below keep it exactly:
+its meaning"), so both versions below keep it exactly.  Each field's costs
+depend on that field alone: a batch of C fields gives, field by field, the
+bits of C one-field calls.
 
 * ``windowed_multiview_ncc_plain`` -- plain torch, the CPU path and the
   reference the kernel is checked against on the card;
-* ``windowed_multiview_ncc`` -- kernel ``ncc_window`` (csrc/ncc_window.cu)
-  on CUDA tensors, the plain version on CPU tensors; with ``src_depths`` the
-  with_geom variant (``ncc_window_geom``), which also returns the
-  truncated-lookup forward-backward geometric cost from the same window.
+* ``windowed_multiview_ncc`` -- kernel ``ncc_window`` (csrc/ncc_window.cu,
+  one launch for the batch) on CUDA tensors, the plain version on CPU
+  tensors; with ``src_depths`` the with_geom variant (``ncc_window_geom``),
+  which also returns the truncated-lookup forward-backward geometric cost
+  from the same window.
 
 Two rules of the Pallas kernel that differ from the exact path are kept:
 the +1 bilinear corners are read from the storage row/column after the
@@ -44,6 +49,7 @@ WIN_W = 384    # window columns: 128-aligned origin plus slack
 _MARGIN_Y = 10
 _MARGIN_X = 24
 MAX_TAPS = 64  # the kernel keeps the tap offsets in shared memory
+MAX_VIEWS = 64  # and a record per view
 
 
 def pack_pair_params(ref_cam: Camera, src_cams: Cameras) -> torch.Tensor:
@@ -86,25 +92,27 @@ def _window_origin(vmin: torch.Tensor, margin: int, tile: int,
     return off.clamp(0, max((span - win) // tile * tile, 0))
 
 
-def compute_center_windows(src_cams: Cameras, ref_cam: Camera, normal, w,
+def compute_center_windows(src_cams: Cameras, ref_cam: Camera, normals, ws,
                            xs, ys, src_shape):
-    """Per (view, tile) window origins from the centre-tap projections:
-    (off_y, off_x) int32 (S, TY*TX), tiles in row-major order.  Non-finite
-    or far-off (|p| >= 1e7) projections count as 1e9."""
-    H, W = xs.shape
+    """Per (field, view, tile) window origins from the centre-tap
+    projections of the fields (normals (C, H, W, 3), ws (C, H, W)):
+    (off_y, off_x) int32 (C, S, TY*TX), tiles in row-major order.
+    Non-finite or far-off (|p| >= 1e7) projections count as 1e9."""
+    C, H, W = ws.shape
     ty, tx = H // TILE_H, W // TILE_W
-    depth = G.depth_from_plane(ref_cam, xs, ys, normal, w)
+    depth = G.depth_from_plane(ref_cam, xs, ys, normals, ws)
     X = G.unproject_world(ref_cam, xs, ys, depth)
-    px, py, _ = G.project(expand_views(src_cams, 2), X)
+    px, py, _ = G.project(expand_views(src_cams, 3), X)
+    px, py = px.transpose(0, 1), py.transpose(0, 1)
     ok = (torch.isfinite(px) & torch.isfinite(py) & (px.abs() < 1e7)
           & (py.abs() < 1e7))
-    S = px.shape[0]
+    S = px.shape[1]
     tmin = lambda p: torch.where(ok, p, 1e9).reshape(
-        S, ty, TILE_H, tx, TILE_W).amin((2, 4))
+        C, S, ty, TILE_H, tx, TILE_W).amin((3, 5))
     off_y = _window_origin(tmin(py), _MARGIN_Y, TILE_H, src_shape[0], WIN_H)
     off_x = _window_origin(tmin(px), _MARGIN_X, TILE_W, src_shape[1], WIN_W)
-    return (off_y.reshape(S, -1).to(torch.int32).contiguous(),
-            off_x.reshape(S, -1).to(torch.int32).contiguous())
+    return (off_y.reshape(C, S, -1).to(torch.int32).contiguous(),
+            off_x.reshape(C, S, -1).to(torch.int32).contiguous())
 
 
 def pad_to_window(stack: torch.Tensor) -> torch.Tensor:
@@ -116,20 +124,21 @@ def pad_to_window(stack: torch.Tensor) -> torch.Tensor:
     return stack.contiguous()
 
 
-def _setup(src_images, src_cams, ref_cam, normal, w, ctx, src_depths):
-    """The kernel's operands: padded stacks, window origins, pair rows and
-    the plane field channel-first."""
-    H, W = w.shape
+def _setup(src_images, src_cams, ref_cam, normals, ws, ctx, src_depths):
+    """The kernel's operands for C plane fields (normals (C, H, W, 3), ws
+    (C, H, W)): padded stacks, window origins, pair rows and the fields
+    channel-first."""
+    H, W = ws.shape[1:]
     if H % TILE_H or W % TILE_W:
         raise ValueError(f"the evaluation grid {(H, W)} must be a multiple "
                          f"of the {TILE_H}x{TILE_W} tile")
     src = pad_to_window(src_images)
     dep = None if src_depths is None else pad_to_window(src_depths)
-    off_y, off_x = compute_center_windows(src_cams, ref_cam, normal, w,
+    off_y, off_x = compute_center_windows(src_cams, ref_cam, normals, ws,
                                           ctx.xs, ctx.ys, src.shape[1:])
     return dict(src=src, dep=dep, off_y=off_y, off_x=off_x,
                 cam=pack_pair_params(ref_cam, src_cams),
-                nrm=normal.movedim(-1, 0).contiguous(), w=w.contiguous(),
+                nrm=normals.movedim(-1, 1).contiguous(), w=ws.contiguous(),
                 xs=ctx.xs.contiguous(), ys=ctx.ys.contiguous(),
                 taps=ctx.ref_taps.contiguous(),
                 weights=ctx.weights.contiguous(),
@@ -138,9 +147,23 @@ def _setup(src_images, src_cams, ref_cam, normal, w, ctx, src_depths):
 
 def ncc_window_plain(src, dep, off_y, off_x, cam, nrm, w, xs, ys, taps,
                      weights, toff, params: PatchMatchParams):
-    """Plain torch kernel 6 on the operands of ``_setup``: (S, H, W) costs,
-    or (costs, geometric costs) when ``dep`` is given.  Every operation and
-    its order are the kernel's, so on the card the two agree bit for bit."""
+    """Plain torch kernel 6 on the operands of ``_setup``: (C, S, H, W)
+    costs, or (costs, geometric costs) when ``dep`` is given, one field
+    after the other.  Every operation and its order are the kernel's, so on
+    the card the two agree bit for bit."""
+    outs = [_ncc_window_field(src, dep, off_y[c], off_x[c], cam, nrm[c],
+                              w[c], xs, ys, taps, weights, toff, params)
+            for c in range(w.shape[0])]
+    if dep is None:
+        return torch.stack(outs)
+    return (torch.stack([cv for cv, _ in outs]),
+            torch.stack([gv for _, gv in outs]))
+
+
+def _ncc_window_field(src, dep, off_y, off_x, cam, nrm, w, xs, ys, taps,
+                      weights, toff, params: PatchMatchParams):
+    """``ncc_window_plain`` of one field: off_y, off_x (S, TY*TX), nrm
+    (3, H, W), w (H, W); (S, H, W) costs [, geometric costs]."""
     S, Hp, Wp = src.shape
     H, W = w.shape
     ty, tx = H // TILE_H, W // TILE_W
@@ -251,36 +274,41 @@ def window_bilinear_plain(src_flat, Wp, y0, x0, px, py):
 
 def ncc_window(src, dep, off_y, off_x, cam, nrm, w, xs, ys, taps, weights,
                toff, params: PatchMatchParams):
-    """Kernel 6 (csrc/ncc_window.cu) on CUDA tensors; the plain version on
-    CPU tensors.  Operands as ``ncc_window_plain``."""
+    """Kernel 6 (csrc/ncc_window.cu), one launch for the C fields, on CUDA
+    tensors; the plain version on CPU tensors.  Operands as
+    ``ncc_window_plain``."""
     if src.device.type == "cpu":
         return ncc_window_plain(src, dep, off_y, off_x, cam, nrm, w, xs, ys,
                                 taps, weights, toff, params)
     S, Hp, Wp = src.shape
-    H, W = w.shape
+    C, H, W = w.shape
     T = taps.shape[0]
     n_tiles = (H // TILE_H) * (W // TILE_W)
     dev = src.device
-    if H % TILE_H or W % TILE_W or T > MAX_TAPS or n_tiles > 65535:
-        raise ValueError(f"ncc_window: grid {(H, W)} with {T} taps is not "
+    if (H % TILE_H or W % TILE_W or T > MAX_TAPS or S > MAX_VIEWS
+            or n_tiles > 65535 or C > 65535 or Hp * Wp >= 2 ** 31
+            or T * H * W >= 2 ** 31):
+        raise ValueError(f"ncc_window: {C} fields of {(H, W)} against "
+                         f"{S} views of {(Hp, Wp)} with {T} taps are not "
                          f"supported")
     _lib.require(src, "src", torch.float32, (S, Hp, Wp), dev)
-    _lib.require(off_y, "off_y", torch.int32, (S, n_tiles), dev)
-    _lib.require(off_x, "off_x", torch.int32, (S, n_tiles), dev)
+    _lib.require(off_y, "off_y", torch.int32, (C, S, n_tiles), dev)
+    _lib.require(off_x, "off_x", torch.int32, (C, S, n_tiles), dev)
     _lib.require(cam, "cam", torch.float32, (S, 128), dev)
-    _lib.require(nrm, "nrm", torch.float32, (3, H, W), dev)
-    for name, t in (("w", w), ("xs", xs), ("ys", ys)):
+    _lib.require(nrm, "nrm", torch.float32, (C, 3, H, W), dev)
+    _lib.require(w, "w", torch.float32, (C, H, W), dev)
+    for name, t in (("xs", xs), ("ys", ys)):
         _lib.require(t, name, torch.float32, (H, W), dev)
     _lib.require(taps, "taps", torch.float32, (T, H, W), dev)
     _lib.require(weights, "weights", torch.float32, (T, H, W), dev)
     _lib.require(toff, "toff", torch.float32, (T, 2), dev)
-    out = torch.empty((S, H, W), dtype=torch.float32, device=dev)
+    out = torch.empty((C, S, H, W), dtype=torch.float32, device=dev)
     lib = _lib.library()
     common = (off_y.data_ptr(), off_x.data_ptr(), cam.data_ptr(),
               nrm.data_ptr(), w.data_ptr(), xs.data_ptr(), ys.data_ptr(),
               taps.data_ptr(), weights.data_ptr(), toff.data_ptr(),
               out.data_ptr())
-    shape = (S, H, W, Hp, Wp, T)
+    shape = (C, S, H, W, Hp, Wp, T)
     if dep is None:
         with torch.cuda.device(dev):
             err = lib.acmmp_ncc_window(src.data_ptr(), *common, *shape,
@@ -300,19 +328,20 @@ def ncc_window(src, dep, off_y, off_x, cam, nrm, w, xs, ys, taps, weights,
 
 
 def windowed_multiview_ncc(src_images, src_cams: Cameras, ref_cam: Camera,
-                           normal, w, ctx, params: PatchMatchParams,
+                           normals, ws, ctx, params: PatchMatchParams,
                            src_depths=None):
-    """(S, H, W) costs of the plane field (normal (H, W, 3), w (H, W) on
-    ``ctx``'s grid, H and W multiples of 8 and 128) against the padded source
-    stack (S, Hp, Wp); with ``src_depths`` (S, Hp, Wp) also the geometric
-    costs, returned as (cost, geom).  Kernel 6 on CUDA tensors."""
-    return ncc_window(**_setup(src_images, src_cams, ref_cam, normal, w, ctx,
-                               src_depths), params=params)
+    """(C, S, H, W) costs of C plane fields (normals (C, H, W, 3), ws
+    (C, H, W) on ``ctx``'s grid, H and W multiples of 8 and 128) against the
+    padded source stack (S, Hp, Wp); with ``src_depths`` (S, Hp, Wp) also
+    the geometric costs, returned as (cost, geom).  One launch of kernel 6
+    on CUDA tensors."""
+    return ncc_window(**_setup(src_images, src_cams, ref_cam, normals, ws,
+                               ctx, src_depths), params=params)
 
 
 def windowed_multiview_ncc_plain(src_images, src_cams: Cameras,
-                                 ref_cam: Camera, normal, w, ctx,
+                                 ref_cam: Camera, normals, ws, ctx,
                                  params: PatchMatchParams, src_depths=None):
     """``windowed_multiview_ncc`` through the plain version on any device."""
-    return ncc_window_plain(**_setup(src_images, src_cams, ref_cam, normal,
-                                     w, ctx, src_depths), params=params)
+    return ncc_window_plain(**_setup(src_images, src_cams, ref_cam, normals,
+                                     ws, ctx, src_depths), params=params)

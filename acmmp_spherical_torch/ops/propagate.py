@@ -95,11 +95,6 @@ def _depth_range(inputs: PatchMatchInputs):
     return inputs.depth_range[0], inputs.depth_range[1]
 
 
-def _use_fast(params: PatchMatchParams, allow_fast: bool) -> bool:
-    """The windowed kernel path (pinhole only, checked by _check_slice)."""
-    return params.fast_ncc and allow_fast
-
-
 def _use_rect(inputs: PatchMatchInputs, params: PatchMatchParams) -> bool:
     """The rectified kernel path; geometric passes also need the warped
     source disparities in the context."""
@@ -129,63 +124,38 @@ def _masked(inputs, cv, fill):
                        torch.full_like(cv, fill))
 
 
-def _fast_cost_vector(inputs, ctx: RefTapContext, normal, w, params, *,
-                      with_geom: bool = False):
-    """The windowed kernel on a grid edge-padded to multiples of the 8x128
-    tile, cropped back; with ``with_geom`` returns (cv, gv)."""
-    H, W = w.shape
+def _fast_cost_vectors(inputs, ctx: RefTapContext, normals, ws, params, *,
+                       with_geom: bool = False):
+    """One windowed evaluation of C fields (normals (C, H, W, 3), ws
+    (C, H, W)) on a grid edge-padded to multiples of the 8x128 tile,
+    cropped back: (C, S, H, W) costs, with ``with_geom`` (cv, gv)."""
+    H, W = ws.shape[1:]
     ph, pw = (-H) % TILE_H, (-W) % TILE_W
     if ph or pw:
         pad = lambda a: torch.nn.functional.pad(
-            a[None], (0, pw, 0, ph), mode="replicate")[0]
+            a.reshape(1, -1, H, W), (0, pw, 0, ph), mode="replicate"
+        ).reshape(*a.shape[:-2], H + ph, W + pw)
         ctx = RefTapContext(ctx.offsets, pad(ctx.ref_taps), pad(ctx.weights),
-                            pad(ctx.center[None])[0], pad(ctx.xs[None])[0],
-                            pad(ctx.ys[None])[0])
-        normal = pad(normal.movedim(-1, 0)).movedim(0, -1)
-        w = pad(w[None])[0]
+                            pad(ctx.center), pad(ctx.xs), pad(ctx.ys))
+        normals = pad(normals.movedim(-1, 1)).movedim(1, -1)
+        ws = pad(ws)
     out = windowed_multiview_ncc(
-        inputs.src_images, inputs.src_cams, inputs.ref_cam, normal, w, ctx,
+        inputs.src_images, inputs.src_cams, inputs.ref_cam, normals, ws, ctx,
         params, inputs.src_depths if with_geom else None)
-    crop = lambda a: a[:, :H, :W]
+    crop = lambda a: a[..., :H, :W]
     return (crop(out[0]), crop(out[1])) if with_geom else crop(out)
 
 
-def _cost_and_geom(inputs, ctx, normal, w, params, *, allow_fast=True):
-    """(photometric cost vector, geometric cost vector | None) of one plane
-    field off the rectified path, padded views masked: both from one
-    windowed launch on the fast path, else the exact path's."""
-    geom_on = params.geom_consistency and inputs.src_depths is not None
-    if _use_fast(params, allow_fast):
-        if geom_on:
-            cv, gv = _fast_cost_vector(inputs, ctx, normal, w, params,
-                                       with_geom=True)
-        else:
-            cv, gv = _fast_cost_vector(inputs, ctx, normal, w, params), None
-    else:
-        cv = multiview_ncc(inputs.src_images, inputs.src_cams, inputs.ref_cam,
-                           normal, w, ctx, params)
-        gv = None
-        if geom_on:
-            gv = geom_consistency_cost(inputs.src_depths, inputs.src_cams,
-                                       inputs.ref_cam, normal, w, ctx.xs,
-                                       ctx.ys, params)
-    cv = _masked(inputs, cv, params.cost_max)
-    if gv is not None:
-        gv = _masked(inputs, gv, params.geom_max_cost)
-    return cv, gv
-
-
-def _batched_cost_vectors(inputs, ctx, params, normals, ws, *, exact_idx=(),
-                          parity=None):
+def _batched_cost_vectors(inputs, ctx, params, normals, ws, *, parity=None):
     """Cost vectors (C, S, H, Wg) of C candidate fields and, in geometric
     passes, the geometric ones (else None); padded views at cost_max /
-    geom_max_cost.  The rectified path evaluates the batch in one kernel
-    call (``parity`` picks the half-grid's map); off it each candidate is
-    one windowed or exact evaluation, ``exact_idx`` forcing the exact
-    path."""
+    geom_max_cost.  The kernel paths evaluate the batch in one kernel call
+    -- the rectified one (``parity`` picks the half-grid's map) or the
+    windowed one (``fast_ncc``); the exact path evaluates one field after
+    the other."""
+    pad = inputs.src_valid[None, :, None, None]
+    mask = lambda a, fill: torch.where(pad, a, torch.full_like(a, fill))
     if _use_rect(inputs, params):
-        pad = inputs.src_valid[None, :, None, None]
-        mask = lambda a, fill: torch.where(pad, a, torch.full_like(a, fill))
         if not params.geom_consistency:
             cv = rect_batched_ncc(inputs.rect, normals, ws, params,
                                   parity=parity)
@@ -193,12 +163,20 @@ def _batched_cost_vectors(inputs, ctx, params, normals, ws, *, exact_idx=(),
         cv, gv = rect_batched_ncc(inputs.rect, normals, ws, params,
                                   parity=parity, with_geom=True)
         return mask(cv, params.cost_max), mask(gv, params.geom_max_cost)
-    out = [_cost_and_geom(inputs, ctx, normals[i], ws[i], params,
-                          allow_fast=i not in exact_idx)
-           for i in range(ws.shape[0])]
-    cv = torch.stack([c for c, _ in out])
-    return cv, (None if out[0][1] is None
-                else torch.stack([g for _, g in out]))
+    geom_on = params.geom_consistency and inputs.src_depths is not None
+    if params.fast_ncc:
+        out = _fast_cost_vectors(inputs, ctx, normals, ws, params,
+                                 with_geom=geom_on)
+        cv, gv = out if geom_on else (out, None)
+    else:
+        cv = torch.stack([multiview_ncc(
+            inputs.src_images, inputs.src_cams, inputs.ref_cam, normals[i],
+            ws[i], ctx, params) for i in range(ws.shape[0])])
+        gv = None if not geom_on else torch.stack([geom_consistency_cost(
+            inputs.src_depths, inputs.src_cams, inputs.ref_cam, normals[i],
+            ws[i], ctx.xs, ctx.ys, params) for i in range(ws.shape[0])])
+    return (mask(cv, params.cost_max),
+            None if gv is None else mask(gv, params.geom_max_cost))
 
 
 def initialize_state(inputs: PatchMatchInputs, params: PatchMatchParams,
@@ -252,7 +230,7 @@ def _refinement_candidates(inputs, params, key, xs, ys, normal, depth,
     k_rd, k_rn, k_pn, k_pd = R.split(key, 4)
 
     H_, W_ = depth.shape
-    if _use_fast(params, True) or _use_rect(inputs, params):
+    if params.fast_ncc or _use_rect(inputs, params):
         slab = 1.0 / 16.0
         th, tw = -(-H_ // 8), -(-W_ // 128)
         k_slab, k_in = R.split(k_rd)
@@ -289,12 +267,8 @@ def _refinement(inputs, ctx, params, key, xs, ys, normal, w, depth, cost,
     post-acceptance running hypothesis."""
     cand_normals, cand_w, cand_depth_at = _refinement_candidates(
         inputs, params, key, xs, ys, normal, depth, dmin, dmax)
-    # the random-depth candidates 0 and 2 ride a kernel only when sampled
-    # tile-smooth; otherwise they stay on the exact path
-    rand_ok = _use_rect(inputs, params) or _use_fast(params, True)
-    cv5, gv5 = _batched_cost_vectors(
-        inputs, ctx, params, cand_normals, cand_w,
-        exact_idx=() if rand_ok else (0, 2), parity=parity)
+    cv5, gv5 = _batched_cost_vectors(inputs, ctx, params, cand_normals,
+                                     cand_w, parity=parity)
     can_refine = sel.weight_norm > 0.0     # reference early-out (ACMMP.cu:813)
     for i in range(5):
         c_i = _aggregate(cv5[i], None if gv5 is None else gv5[i], sel.weights,
@@ -319,20 +293,14 @@ def _halfstep_core(inputs, ctx, params, key, iteration, xs, ys, cur_normal,
     k_votes, k_refine = R.split(key)
     dmin, dmax = _depth_range(inputs)
 
-    if _use_rect(inputs, params):
-        # the 8 candidates and the current plane in one C=9 evaluation
-        all_n = torch.cat([cands.normal, cur_normal[None]], 0)
-        all_w = torch.cat([cands.w, cur_w[None]], 0)
-        cv_all, gv_all = _batched_cost_vectors(inputs, ctx, params, all_n,
-                                               all_w, parity=parity)
-        cost_arrays = cv_all[:8]
-        geom = [None] * 8 if gv_all is None else gv_all[:8]
-        now_vecs = (cv_all[8], None if gv_all is None else gv_all[8])
-    else:
-        cost_arrays, gv = _batched_cost_vectors(inputs, ctx, params,
-                                                cands.normal, cands.w)
-        geom = [None] * 8 if gv is None else gv
-        now_vecs = None
+    # the 8 candidates and the current plane in one C=9 evaluation
+    all_n = torch.cat([cands.normal, cur_normal[None]], 0)
+    all_w = torch.cat([cands.w, cur_w[None]], 0)
+    cv_all, gv_all = _batched_cost_vectors(inputs, ctx, params, all_n, all_w,
+                                           parity=parity)
+    cost_arrays = cv_all[:8]
+    geom = [None] * 8 if gv_all is None else gv_all[:8]
+    now_vecs = (cv_all[8], None if gv_all is None else gv_all[8])
 
     # view selection sees the photometric costs only
     sel = joint_view_selection(cost_arrays, cands.valid, priors,
@@ -355,8 +323,6 @@ def _halfstep_core(inputs, ctx, params, key, iteration, xs, ys, cur_normal,
     best_depth = G.depth_from_plane(cam, xs, ys, best_n, best_w)
     in_range = (best_depth >= dmin) & (best_depth <= dmax)
 
-    if now_vecs is None:
-        now_vecs = _cost_and_geom(inputs, ctx, cur_normal, cur_w, params)
     cost_now0 = _aggregate(now_vecs[0], now_vecs[1], sel.weights,
                            sel.weight_norm, params.geom_weight_prop)
     cost_now0 = torch.where(no_votes, cur_cost, cost_now0)

@@ -29,17 +29,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    reference's committed statistics at drift_gate's 2e-2;
 6. the windowed photometric path (``rect_ncc`` off, ``fast_ncc`` on, as the
    pass runner runs problems that fail ``host_rectifiable``): ``ncc_window``
-   against its plain version on the packed half-grids (parity 0 with 9
-   fields, parity 1 with 5; random planes and planes around phase 3's
-   output) and ``window_sample`` on phase 3's centre-tap projections into
-   each source view; the pass once warm and three times timed (84
-   ``ncc_window`` launches each), median relative depth error < 0.0046;
-   then the windowed sampler's path: every source view warped into the
-   reference frame through that depth, its residual against the same warp
-   through the ground truth;
+   against its plain version, bit for bit, on the batched launches of the
+   packed half-grids (parity 0 with 9 fields, parity 1 with 5; random
+   planes and planes around phase 3's output) and ``window_sample`` on
+   phase 3's centre-tap projections into each source view; the pass once
+   warm and three times timed (12 ``ncc_window`` launches each), median
+   relative depth error < 0.0046; then the windowed sampler's path: every
+   source view warped into the reference frame through that depth, its
+   residual against the same warp through the ground truth;
 7. the windowed geometric path (phase 4's source depths, seeded from phase
-   6): ``ncc_window`` with_geom against its plain version, the pass warm +
-   3 timed (56 launches each), its error below phase 6's;
+   6): ``ncc_window`` with_geom against its plain version on the same
+   batched launches, the pass warm + 3 timed (8 launches each), its error
+   below phase 6's;
 8. the exact and windowed golden passes and 95x64 odd-frame passes on the
    rectified, windowed and exact paths against the reference's statistics
    at 2e-2.  Every kernel must have been launched by one of the driven
@@ -61,7 +62,8 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 COST_TOL = 1e-4          # |kernel - plain| on costs where both agree on `bad`
-#                          (rect_ncc must besides be bit-identical)
+#                          (rect_ncc and ncc_window must besides be
+#                          bit-identical)
 BAD_AGREE_MIN = 0.999    # fraction of pixels whose `bad` decision agrees
 GEOM_TOL = 1e-4          # |kernel - plain| on geom costs; gok mask identical
 WARP_TOL = 1e-4          # greylevels, valid samples; SENTINEL mask identical
@@ -75,17 +77,22 @@ FP32_FLOP_PER_S = 67e12
 TAP_FLOPS = 30           # fp32 operations per (candidate, pixel, tap)
 BICUBIC_FLOPS = 80       # per valid rect pixel: coordinates, weights, 16 taps
 DISP_FLOPS = 20          # per valid rect pixel: coordinates, z_rect, division
-WIN_TAP_FLOPS = 70       # ncc_window, per (view, pixel, tap): projection 43,
-#                          windowed bilinear 13, moment sums 14
+# ncc_window's least work, per (field, pixel, tap) for the view-independent
+# part -- ray 6, plane depth 6 (n.r 4, parallel test, division), camera-frame
+# point 2, wgt*ref and wgt*ref^2 2 -- and per (field, view, pixel, tap) for
+# the rest -- pose 18, |z| test and division 2, projection 6, image test 4,
+# floors 2, window test 4, fractions 2, bilinear 9, moment sums 9
+WIN_PLANE_FLOPS = 16
+WIN_VIEW_FLOPS = 56
 SAMPLE_FLOPS = 17        # window_sample, per sample: floors, window test,
 #                          bilinear, image test
 WINDOW_ERR_MAX = 0.0046  # windowed pass gate: see PERF.md, "Windowed pass"
 WARP_RESID_SLACK = 1.0   # greylevels over twice the ground truth's residual
-# fields evaluated on ncc_window per pass: 14 per half-step (8 candidates,
-# the current plane, 5 refinement candidates) x 6 photometric / 4 geometric
-# half-steps; the init is exact
-WIN_PHOT_LAUNCHES = 84
-WIN_GEOM_LAUNCHES = 56
+# ncc_window launches per pass: 2 per half-step (the 8 candidates and the
+# current plane at C=9, the 5 refinement candidates at C=5) x 6 photometric
+# / 4 geometric half-steps; the init is exact
+WIN_PHOT_LAUNCHES = 12
+WIN_GEOM_LAUNCHES = 8
 ODD_SCENE = dict(width=95, height=64, n_src=3, focal=80.0, radius=0.35)
 PHOT_KERNELS = ("rect_ncc", "warp_transport", "warp_src_frames")
 GEOM_KERNELS = ("rect_ncc_geom", "warp_transport", "warp_src_frames",
@@ -399,73 +406,85 @@ def plane_field(cam, depth, normal_world):
     return n, G.dist_to_origin(cam, xs, ys, depth, n)
 
 
-def check_window_case(name, inputs, ctx, n, w, p, dep):
+def check_window_case(name, inputs, ctx, normals, ws, p, dep):
     """ncc_window (with ``dep``: its with_geom variant) against its plain
-    version on one plane field; returns (max error, the kernel's
-    operands)."""
+    version on one batched launch of C plane fields: bit-identical.
+    Returns (max |kernel - plain|, the kernel's operands)."""
     import torch
 
     from acmmp_spherical_torch.ops.kernels import ncc_window as NW
 
-    ops = NW._setup(inputs.src_images, inputs.src_cams, inputs.ref_cam, n, w,
-                    ctx, dep)
+    ops = NW._setup(inputs.src_images, inputs.src_cams, inputs.ref_cam,
+                    normals, ws, ctx, dep)
     ck = NW.ncc_window(**ops, params=p)
     cp = NW.ncc_window_plain(**ops, params=p)
     torch.cuda.synchronize()
+    pairs = tuple(zip(ck, cp)) if dep is not None else ((ck, cp),)
+    err = max(float((k - pl).abs().nan_to_num(float("inf")).max())
+              for k, pl in pairs)
+    if not all(torch.equal(k, pl) for k, pl in pairs):
+        raise AssertionError(f"ncc_window {name}: not bit-identical to the "
+                             f"plain version (max err {err})")
+    msg = (f"ncc_window {name}: bit-identical, live fraction "
+           f"{float((pairs[0][1] < p.cost_max).float().mean()):.3f}")
     if dep is not None:
-        (ck, gk), (cp, gp) = ck, cp
-    bk, bp = ck >= p.cost_max, cp >= p.cost_max
-    agree = float((bk == bp).float().mean())
-    both = ~bk & ~bp
-    err = float((ck - cp)[both].abs().max()) if bool(both.any()) else 0.0
-    if agree < BAD_AGREE_MIN or err > COST_TOL:
-        raise AssertionError(f"ncc_window {name}: agreement {agree}, err {err}")
-    msg = (f"ncc_window {name}: bad-mask agreement {agree:.6f}, max err "
-           f"{err:.3g}, live fraction {float(both.float().mean()):.3f}")
-    if dep is not None:
-        gok = gk < p.geom_max_cost
-        if not torch.equal(gok, gp < p.geom_max_cost):
-            raise AssertionError(f"ncc_window_geom {name}: gok masks differ")
-        gerr = float((gk - gp)[gok].abs().max()) if bool(gok.any()) else 0.0
-        if gerr > GEOM_TOL:
-            raise AssertionError(f"ncc_window_geom {name}: geom err {gerr}")
-        msg += (f"; gok fraction {float(gok.float().mean()):.3f}, max geom "
-                f"err {gerr:.3g}")
-        err = max(err, gerr)
+        msg += (f", gok fraction "
+                f"{float((pairs[1][1] < p.geom_max_cost).float().mean()):.3f}")
     log(msg)
     return err, ops
 
 
-def check_window_kernel(label, inputs, p, fields, dep):
-    """Phases 6-7: ncc_window (``dep``: with_geom) on the packed half-grids
-    of the windowed pass, parity 0 with 9 fields and parity 1 with 5, for
-    each family of full-grid plane fields in ``fields`` ({family: [(normal,
-    w), ...]}); returns its kernel entry, timed on the first field."""
+def window_timing(ops, p):
+    """ms per launch of ncc_window and of its plain version on one batch,
+    and the bound of the launch from its inputs."""
     from acmmp_spherical_torch.ops.kernels import ncc_window as NW
+
+    C, H, W = ops["w"].shape
+    S = ops["src"].shape[0]
+    n_taps = ops["taps"].shape[0]
+    outs = 1 if ops["dep"] is None else 2
+    nb = nbytes(*(t for t in ops.values() if t is not None)) \
+        + outs * C * S * H * W * 4
+    flops = C * H * W * n_taps * (WIN_PLANE_FLOPS + S * WIN_VIEW_FLOPS)
+    ms = cuda_ms(lambda: NW.ncc_window(**ops, params=p), 10)
+    bnd = bound(nb, flops)
+    return dict(ms=ms, ms_per_field=ms / C,
+                plain_ms=cuda_ms(lambda: NW.ncc_window_plain(**ops, params=p),
+                                 1),
+                bound_ms=bnd[0], bound_by=bnd[1])
+
+
+def check_window_kernel(label, inputs, p, fields, dep):
+    """Phases 6-7: ncc_window (``dep``: with_geom) on the batched launches of
+    the windowed pass's packed half-grids, parity 0 with 9 fields and parity
+    1 with 5, for each family of full-grid plane fields in ``fields``
+    ({family: [(normal, w), ...]}); returns its kernel entry, timed on the
+    first family's launches (``ms`` at C=9, every case under ``cases``)."""
+    import torch
+
     from acmmp_spherical_torch.ops.ncc import ref_tap_context
 
     ctx = ref_tap_context(inputs.ref_image, inputs.ref_cam, p)
-    errs, first = [], None
+    cases, errs = {}, []
     for family, planes in fields.items():
         for C, parity in ((9, 0), (5, 1)):
-            cctx = packed_ctx(ctx, parity)
-            for i in range(C):
-                n, w = packed(planes[i][0], planes[i][1], parity)
-                err, ops = check_window_case(
-                    f"{label} {family} parity{parity} field{i}", inputs,
-                    cctx, n, w, p, dep)
-                errs.append(err)
-                first = first or ops
-    S, H, W = first["src"].shape[0], *first["w"].shape
-    n_taps = first["taps"].shape[0]
-    outs = 1 if dep is None else 2
-    nb = nbytes(*(t for t in first.values() if t is not None)) \
-        + outs * S * H * W * 4
-    return kernel_entry(
-        "ncc_window.cu", "ncc_window.py:346", max(errs),
-        cuda_ms(lambda: NW.ncc_window(**first, params=p), 10),
-        cuda_ms(lambda: NW.ncc_window_plain(**first, params=p), 2),
-        bound(nb, S * H * W * n_taps * WIN_TAP_FLOPS))
+            n, w = packed(torch.stack([a for a, _ in planes[:C]]),
+                          torch.stack([b for _, b in planes[:C]]), parity)
+            case = f"C{C}_parity{parity}"
+            err, ops = check_window_case(f"{label} {family} {case}",
+                                         inputs, packed_ctx(ctx, parity), n,
+                                         w, p, dep)
+            errs.append(err)
+            if case not in cases:
+                cases[case] = window_timing(ops, p)
+                log(f"ncc_window {label} {case}: {cases[case]}")
+    c9 = cases["C9_parity0"]
+    e = kernel_entry("ncc_window.cu", "ncc_window.py:346", max(errs),
+                     c9["ms"], c9["plain_ms"],
+                     (c9["bound_ms"], c9["bound_by"]))
+    e["ms_per_field"] = c9["ms_per_field"]
+    e["cases"] = cases
+    return e
 
 
 def centre_projections(inputs, depth):
@@ -682,8 +701,8 @@ def main() -> int:
     wout, win = drive("windowed photometric", ("ncc_window",),
                       lambda r: run_patchmatch(inputs, win_params, r))
     if win["launches"]["ncc_window"] != 4 * WIN_PHOT_LAUNCHES:
-        raise AssertionError("the windowed photometric pass did not evaluate "
-                             f"{WIN_PHOT_LAUNCHES} fields on ncc_window")
+        raise AssertionError("the windowed photometric pass did not launch "
+                             f"ncc_window {WIN_PHOT_LAUNCHES} times")
     wrel = median_rel_err(wout[0], gt[0])
     log(f"windowed photometric median rel depth err {wrel} (rectified {rel})")
     if wrel >= WINDOW_ERR_MAX:
@@ -715,8 +734,8 @@ def main() -> int:
                          lambda r: run_patchmatch(geom_inputs, wg_params,
                                                   100 + r, **wseeds))
     if wgeom["launches"]["ncc_window_geom"] != 4 * WIN_GEOM_LAUNCHES:
-        raise AssertionError("the windowed geometric pass did not evaluate "
-                             f"{WIN_GEOM_LAUNCHES} fields on ncc_window_geom")
+        raise AssertionError("the windowed geometric pass did not launch "
+                             f"ncc_window_geom {WIN_GEOM_LAUNCHES} times")
     wgrel = median_rel_err(wgout[0], gt[0])
     log(f"windowed geometric median rel depth err {wgrel} (windowed "
         f"photometric {wrel})")

@@ -9,7 +9,8 @@ JAX, so they also run on a GPU host without it:
 Tolerances (as chip_smoke.py): warp_transport bit-exact; rect_ncc (both
 variants, every candidate count and tap pattern) bit-exact; warp_src_frames
 within 1e-4 greylevels and warp_src_disparities equal, each with an identical
-SENTINEL mask; ncc_window (both variants) and window_sample bit-exact; the
+SENTINEL mask; ncc_window (both variants, every field count and tap
+pattern) and window_sample bit-exact; the
 golden photometric and geometric passes on the rectified path, and the
 photometric ones on the windowed and exact paths, within drift_gate's 2e-2
 of their fixtures.
@@ -240,14 +241,14 @@ def test_window_kernels_match_plain(cuda, with_geom):
     n_p = pad(n.movedim(-1, 0)).movedim(0, -1)
     w_p = pad(w[None])[0]
     dep = torch.as_tensor(depths[1:], device=cuda) if with_geom else None
-    ops = NW._setup(inputs.src_images, inputs.src_cams, cam, n_p, w_p, ctx_p,
-                    dep)
+    ops = NW._setup(inputs.src_images, inputs.src_cams, cam, n_p[None],
+                    w_p[None], ctx_p, dep)
     _lib.reset_launch_counts()
     k = NW.ncc_window(**ops, params=params)
     p = NW.ncc_window_plain(**ops, params=params)
     torch.cuda.synchronize()
     for a, b in zip(k, p) if with_geom else ((k, p),):
-        assert torch.equal(a, b)
+        assert a.shape == (1, 3, H, 128) and torch.equal(a, b)
     assert float((p[0] if with_geom else p).lt(params.cost_max).float()
                  .mean()) > 0.3
     X = G.unproject_world(cam, xs, ys, G.depth_from_plane(cam, xs, ys, n, w))
@@ -264,11 +265,65 @@ def test_window_kernels_match_plain(cuda, with_geom):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("grid", ["packed", "odd"])
+@pytest.mark.parametrize("pattern", ["11x11s2", "7x7s1"])
+@pytest.mark.parametrize("with_geom", [False, True], ids=["phot", "geom"])
+@pytest.mark.parametrize("C", [1, 5, 9])
+def test_ncc_window_batches_match_plain(cuda, C, with_geom, pattern, grid):
+    """ncc_window evaluates C fields in one launch, in chunks of views:
+    bit-identical to the plain version for C = 1, 5 and 9, both variants,
+    on the default tap pattern and on 7x7 at stride 1 (49 taps), on the
+    golden problem's packed half-grid and on the 95x64 odd frame's full
+    grid, each padded to 128 columns.  The fields (the ground truth's depth
+    scaled by 1.5^(k - C // 2)) place their windows differently."""
+    from acmmp_spherical_torch.core import geometry as G
+    from acmmp_spherical_torch.ops.kernels import ncc_window as NW
+    from acmmp_spherical_torch.ops.ncc import RefTapContext, ref_tap_context
+
+    scene = dict(GOLDEN_SCENE, width=95) if grid == "odd" else GOLDEN_SCENE
+    inputs, params, depths, normals = make_problem(**scene, device=cuda)
+    if pattern == "7x7s1":
+        params = dataclasses.replace(params, patch_size=7, radius_increment=1)
+    H, W = inputs.ref_image.shape
+    xs, ys = grid_coords(H, W, cuda)
+    cam = inputs.ref_cam
+    n = G.normal_world_to_cam(cam, torch.as_tensor(normals[0], device=cuda))
+    w = G.dist_to_origin(cam, xs, ys, torch.as_tensor(depths[0], device=cuda),
+                         n)
+    ctx = ref_tap_context(inputs.ref_image, cam, params)
+    pack = (lambda a: checkerboard_pack(a, 0)) if grid == "packed" else \
+        (lambda a: a)
+    Wg = W // 2 if grid == "packed" else W
+    pad = lambda a: torch.nn.functional.pad(
+        pack(a).reshape(1, -1, H, Wg), (0, 128 - Wg, 0, 0),
+        mode="replicate").reshape(*a.shape[:-2], H, 128)
+    ctx_p = RefTapContext(ctx.offsets, pad(ctx.ref_taps), pad(ctx.weights),
+                          pad(ctx.center), pad(xs), pad(ys))
+    scale = 1.5 ** (torch.arange(C, device=cuda) - C // 2).float()
+    ns = pad(n.movedim(-1, 0)).movedim(0, -1).expand(C, H, 128, 3)
+    ws = pad(w)[None] * scale[:, None, None]
+    dep = torch.as_tensor(depths[1:], device=cuda) if with_geom else None
+    ops = NW._setup(inputs.src_images, inputs.src_cams, cam, ns, ws, ctx_p,
+                    dep)
+    if C > 1:
+        assert len({tuple(o.flatten().tolist()) for o in ops["off_y"]}) > 1
+    _lib.reset_launch_counts()
+    k = NW.ncc_window(**ops, params=params)
+    p = NW.ncc_window_plain(**ops, params=params)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p) if with_geom else ((k, p),):
+        assert a.shape == (C, 3, H, 128) and torch.equal(a, b)
+    assert bool(((p[0] if with_geom else p) < params.cost_max).any())
+    assert _lib.LAUNCHES["ncc_window_geom" if with_geom else "ncc_window"] == 1
+
+
+@pytest.mark.gpu
 def test_windowed_golden_pass_on_card(cuda):
     inputs, params = _golden_off_rect(cuda, fast_ncc=True)
     _lib.reset_launch_counts()
     d, nrm, cost, _ = run_patchmatch(inputs, params, GOLDEN_KEY)
-    assert _lib.LAUNCHES["ncc_window"] == 84
+    # 2 launches per half-step (C=9 and C=5) x 6 half-steps; the init is exact
+    assert _lib.LAUNCHES["ncc_window"] == 12
     _check_against("golden_pass_stats_window.json", d, nrm, cost)
 
 

@@ -19,7 +19,7 @@ reference's tap context is handed to the port through ``interop``.
   field's pixels (ROADMAP Queue 3);
 * ``windowed_sample_plain`` against the Pallas sampler on the cases of
   tests/test_pallas_window.py: equal ok masks, values within 1e-5;
-* ``_fast_cost_vector`` on a grid that is no tile multiple (95x64, the
+* ``_fast_cost_vectors`` on a grid that is no tile multiple (95x64, the
   ground-truth field): padded to 128x64 and cropped back, agreeing as the
   kernel does;
 * one windowed half-step from the same state and key: accept masks equal
@@ -142,10 +142,10 @@ def test_window_origins_match(kernel_scene, field):
                                     ks["ctx"].xs, ks["ctx"].ys, (48, 384))
     tn, tw = _port_field(ks["fields"][field])
     ty, tx = NW.compute_center_windows(
-        tstack(ks["tcams"][1:]), ks["tcams"][0], tn, tw, ks["tctx"].xs,
-        ks["tctx"].ys, (48, 384))
-    np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
-    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+        tstack(ks["tcams"][1:]), ks["tcams"][0], tn[None], tw[None],
+        ks["tctx"].xs, ks["tctx"].ys, (48, 384))
+    np.testing.assert_array_equal(ty[0].numpy(), np.asarray(jy))
+    np.testing.assert_array_equal(tx[0].numpy(), np.asarray(jx))
 
 
 @pytest.mark.parametrize("with_geom", [False, True], ids=["phot", "geom"])
@@ -166,8 +166,10 @@ def test_windowed_ncc_plain_matches_reference(kernel_scene, field,
     tn, tw = _port_field(ks["fields"][field])
     out = NW.windowed_multiview_ncc_plain(
         torch.from_numpy(ks["images"][1:]), tstack(ks["tcams"][1:]),
-        ks["tcams"][0], tn, tw, ks["tctx"], port_params(ks["params"]),
+        ks["tcams"][0], tn[None], tw[None], ks["tctx"],
+        port_params(ks["params"]),
         None if dep is None else torch.from_numpy(dep.copy()))
+    out = (out[0][0], out[1][0]) if with_geom else out[0]
     cv, jcv = (out[0], ref[0]) if with_geom else (out, ref)
     bad_agree, close = _agree(cv.numpy(), np.asarray(jcv), 2.0)
     assert bad_agree >= 0.995 and close >= 0.995, (bad_agree, close)
@@ -232,11 +234,13 @@ def test_fast_cost_vector_off_tile_grid(odd_scene, with_geom):
     n = G.normal_world_to_cam(cams[0], jnp.asarray(normals[0]))
     w = G.dist_to_origin(cams[0], ctx.xs, ctx.ys, jnp.asarray(depths[0]), n)
     ref = JP._fast_cost_vector(jin, ctx, n, w, params, with_geom=with_geom)
-    out = TP._fast_cost_vector(
+    out = TP._fast_cost_vectors(
         port_inputs(tcams, images, depths[1:]),
         interop.ref_tap_context(np_tree(ctx), "cpu"),
-        torch.from_numpy(np.asarray(n)), torch.from_numpy(np.asarray(w)),
-        port_params(params), with_geom=with_geom)
+        torch.from_numpy(np.asarray(n))[None],
+        torch.from_numpy(np.asarray(w))[None], port_params(params),
+        with_geom=with_geom)
+    out = (out[0][0], out[1][0]) if with_geom else out[0]
     pairs = [(out[0], ref[0], 2.0), (out[1], ref[1], 3.0)] if with_geom \
         else [(out, ref, 2.0)]
     for t, j, fill in pairs:
