@@ -1,7 +1,9 @@
-// The windowed bilinear sample shared by ncc_window.cu (kernel 6) and
-// window_sample.cu (kernel 7), after the Pallas kernels'
-// `extract`/`_extract_bilinear` (ops/pallas/ncc_window.py:182-237,
-// ops/pallas/window_sample.py:69-104).
+// The windowed bilinear sample of window_sample.cu (kernel 7), after the
+// Pallas kernels' `extract`/`_extract_bilinear`
+// (ops/pallas/ncc_window.py:182-237, ops/pallas/window_sample.py:69-104),
+// and the tile and window constants it shares with ncc_window.cu (kernel
+// 6), whose tap loop applies the same rule with the in-image test merged
+// into the window test.
 //
 // A sample at (px, py) belongs to the kWinH x kWinW window at storage origin
 // (y0, x0) when its floored corner lies in [0, kWinW - 2] x [0, kWinH - 2]

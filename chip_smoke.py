@@ -80,10 +80,11 @@ DISP_FLOPS = 20          # per valid rect pixel: coordinates, z_rect, division
 # ncc_window's least work, per (field, pixel, tap) for the view-independent
 # part -- ray 6, plane depth 6 (n.r 4, parallel test, division), camera-frame
 # point 2, wgt*ref and wgt*ref^2 2 -- and per (field, view, pixel, tap) for
-# the rest -- pose 18, |z| test and division 2, projection 6, image test 4,
-# floors 2, window test 4, fractions 2, bilinear 9, moment sums 9
+# the rest -- pose 18, |z| test and reciprocal 2, projection 6, floors 2,
+# image and window test 4 (one interval per axis), fractions 2, bilinear 9,
+# moment sums 9
 WIN_PLANE_FLOPS = 16
-WIN_VIEW_FLOPS = 56
+WIN_VIEW_FLOPS = 52
 SAMPLE_FLOPS = 17        # window_sample, per sample: floors, window test,
 #                          bilinear, image test
 WINDOW_ERR_MAX = 0.0046  # windowed pass gate: see PERF.md, "Windowed pass"
