@@ -15,11 +15,19 @@
 // Bound on the H100: 16 gathered reads + 1 write per output pixel; the reads
 // of neighbouring pixels overlap heavily (one output row walks a band of
 // 4 source rows), so the traffic that reaches device memory is about one
-// read of the source band per frame.  Design: one thread per rect pixel, a
-// (128, 8) block per rect tile so the tile gate is uniform in a block and
-// output stores are coalesced; taps are read through L1 straight from
-// global memory.  No window staging: the footprint of a tile in the source
-// varies with the homography, and the caches already hold the band.
+// read of the source band per frame -- bytes, 0.03 ms at the bench point.
+// What held the first version (one 1024-thread block per tile, every thread
+// evaluating the gate's four homographies and eight IEEE divisions) was
+// instruction issue: two thirds of the bench frames are SENTINEL, and their
+// threads did the gate's arithmetic only to store one float.  Design of the
+// bicubic warp: one block per (8, 128) tile, each thread the 8 rows of one
+// column; each warp evaluates the gate once, one corner per lane (mod 4),
+// combined with two shuffle steps; a dead tile is filled with 16-byte
+// SENTINEL stores; on a live tile each thread computes its pixels'
+// coordinates (two IEEE divisions each) and reads the 16 taps through L1,
+// its rows sharing three of their four source rows.  No window staging: the
+// footprint of a tile in the source varies with the homography, and the
+// caches already hold the band.
 
 #include <cuda_runtime.h>
 
@@ -80,52 +88,82 @@ __device__ __forceinline__ bool tile_live(const float* h, float x00, float y00,
          (cx_hi - cx_lo < (float)WC - 8.0f) && (cy_hi - cy_lo < (float)WR - 8.0f);
 }
 
-__global__ void __launch_bounds__(1024)
+// tile_live evaluated once per warp: lane k (mod 4) maps corner k and two
+// shuffle steps combine the four; uniform over the warp and over the tile.
+// Needs every lane of the warp.
+__device__ __forceinline__ bool tile_live_warp(const float* h, float x00,
+                                               float y00, float wi, float hi,
+                                               int WR, int WC) {
+  const int k = threadIdx.x & 3;
+  const Coords c = rect_coords(h, (k & 2) ? x00 + 127.0f : x00,
+                               (k & 1) ? y00 + 7.0f : y00);
+  float z_lo = c.z, cx_lo = c.ox, cx_hi = c.ox, cy_lo = c.oy, cy_hi = c.oy;
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    z_lo = fminf(z_lo, __shfl_xor_sync(0xffffffffu, z_lo, o));
+    cx_lo = fminf(cx_lo, __shfl_xor_sync(0xffffffffu, cx_lo, o));
+    cx_hi = fmaxf(cx_hi, __shfl_xor_sync(0xffffffffu, cx_hi, o));
+    cy_lo = fminf(cy_lo, __shfl_xor_sync(0xffffffffu, cy_lo, o));
+    cy_hi = fmaxf(cy_hi, __shfl_xor_sync(0xffffffffu, cy_hi, o));
+  }
+  return z_lo > 1e-6f && cx_hi >= -2.0f && cx_lo < wi + 2.0f &&
+         cy_hi >= -2.0f && cy_lo < hi + 2.0f &&
+         (cx_hi - cx_lo < (float)WC - 8.0f) && (cy_hi - cy_lo < (float)WR - 8.0f);
+}
+
+constexpr int kRows = 8;                   // tile rows per thread
+constexpr int kSrcThreads = 128 * 8 / kRows;
+
+__global__ void __launch_bounds__(kSrcThreads)
 warp_src_kernel(const float* __restrict__ imgs, const float* __restrict__ consts,
                 float* __restrict__ out, int Hp, int Wp, int HpR, int WpR,
                 int WR, int WC, int gate) {
   const int s = blockIdx.z;
-  const int tx = blockIdx.x, ty = blockIdx.y;
-  const float* h = consts + s * 11;
+  float h[11];
+#pragma unroll
+  for (int i = 0; i < 11; ++i) h[i] = consts[s * 11 + i];
   const float wi = h[9], hi = h[10];
-  const float x00 = 128.0f * (float)tx - (float)kPadX;
-  const float y00 = 8.0f * (float)ty - (float)kPadY;
-  const int px = tx * 128 + threadIdx.x;
-  const int py = ty * 8 + threadIdx.y;
-  float* dst = out + ((long long)s * HpR + py) * WpR + px;
+  const float x00 = 128.0f * (float)blockIdx.x - (float)kPadX;
+  const float y00 = 8.0f * (float)blockIdx.y - (float)kPadY;
+  float* tile = out + ((long long)s * HpR + blockIdx.y * 8) * WpR +
+                blockIdx.x * 128;
 
-  if (gate && !tile_live(h, x00, y00, wi, hi, WR, WC)) {
-    *dst = kSentinel;
+  if (gate && !tile_live_warp(h, x00, y00, wi, hi, WR, WC)) {
+    const float4 sv = make_float4(kSentinel, kSentinel, kSentinel, kSentinel);
+    for (int i = threadIdx.y * 128 + threadIdx.x; i < 256; i += kSrcThreads)
+      reinterpret_cast<float4*>(tile + (i >> 5) * WpR)[i & 31] = sv;
     return;
   }
 
   const float xs = (float)threadIdx.x + x00;
-  const float ys = (float)threadIdx.y + y00;
-  const Coords c = rect_coords(h, xs, ys);
-  const bool valid = (c.z > 0.0f) && (c.ox >= 0.0f) && (c.ox < wi) &&
-                     (c.oy >= 0.0f) && (c.oy < hi);
-  if (!valid) {
-    *dst = kSentinel;
-    return;
-  }
   const int wi_i = (int)wi, hi_i = (int)hi;
-  const float x0f = floorf(c.ox), y0f = floorf(c.oy);
-  const int xa = clampi(floor_to_int(c.ox), 0, wi_i - 1);
-  const int ya = clampi(floor_to_int(c.oy), 0, hi_i - 1);
-  float wx[4], wy[4];
-  catmull_rom(c.ox - x0f, wx);
-  catmull_rom(c.oy - y0f, wy);
   const float* img = imgs + (long long)s * Hp * Wp;
-  int cols[4];
-  for (int k = 0; k < 4; ++k) cols[k] = clampi(xa + k - 1, 0, wi_i - 1);
-  float acc = 0.0f;
-  for (int r = 0; r < 4; ++r) {
-    const float* row = img + (long long)clampi(ya + r - 1, 0, hi_i - 1) * Wp;
-    float rsum = wx[0] * row[cols[0]];
-    for (int k = 1; k < 4; ++k) rsum = rsum + wx[k] * row[cols[k]];
-    acc = acc + wy[r] * rsum;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = threadIdx.y * kRows + r;
+    const Coords c = rect_coords(h, xs, (float)row + y00);
+    const bool valid = (c.z > 0.0f) && (c.ox >= 0.0f) && (c.ox < wi) &&
+                       (c.oy >= 0.0f) && (c.oy < hi);
+    float acc = kSentinel;
+    if (valid) {
+      const float x0f = floorf(c.ox), y0f = floorf(c.oy);
+      const int xa = clampi(floor_to_int(c.ox), 0, wi_i - 1);
+      const int ya = clampi(floor_to_int(c.oy), 0, hi_i - 1);
+      float wx[4], wy[4];
+      catmull_rom(c.ox - x0f, wx);
+      catmull_rom(c.oy - y0f, wy);
+      int cols[4];
+      for (int k = 0; k < 4; ++k) cols[k] = clampi(xa + k - 1, 0, wi_i - 1);
+      acc = 0.0f;
+      for (int q = 0; q < 4; ++q) {
+        const float* src = img + (long long)clampi(ya + q - 1, 0, hi_i - 1) * Wp;
+        float rsum = wx[0] * src[cols[0]];
+        for (int k = 1; k < 4; ++k) rsum = rsum + wx[k] * src[cols[k]];
+        acc = acc + wy[q] * rsum;
+      }
+    }
+    tile[row * WpR + threadIdx.x] = acc;
   }
-  *dst = acc;
 }
 
 // Disparity warp (mode "disp"): per rect pixel, the source depth at the
@@ -181,7 +219,7 @@ extern "C" int acmmp_warp_src_frames(const float* imgs, const float* consts,
                                      float* out, int S, int Hp, int Wp,
                                      int HpR, int WpR, int WR, int WC,
                                      int gate, cudaStream_t stream) {
-  dim3 block(128, 8);
+  dim3 block(128, 8 / kRows);
   dim3 grid(WpR / 128, HpR / 8, S);
   warp_src_kernel<<<grid, block, 0, stream>>>(imgs, consts, out, Hp, Wp, HpR,
                                               WpR, WR, WC, gate);

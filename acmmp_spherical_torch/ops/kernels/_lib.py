@@ -40,7 +40,7 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "acmmp_rect_ncc": [_P] * 9 + [_I] * 8 + [_F] * 3 + [_D, _P],
     "acmmp_rect_ncc_geom": [_P] * 11 + [_I] * 8 + [_F] * 4 + [_D, _P],
-    "acmmp_warp_transport": [_P] * 6 + [_I] * 4 + [_P],
+    "acmmp_warp_transport": [_P] * 12 + [_I] * 4 + [_P],
     "acmmp_warp_src_frames": [_P] * 3 + [_I] * 8 + [_P],
     "acmmp_warp_src_disparities": [_P] * 3 + [_I] * 8 + [_P],
     "acmmp_ncc_window": [_P] * 12 + [_I] * 7 + [_F, _P],

@@ -1,15 +1,19 @@
 """Rectified bilateral-NCC evaluation of candidate plane batches (counterpart
 of acmmp_spherical_tpu/ops/pallas/ncc_rect.py, pinhole path).
 
-``rect_batched_ncc`` computes each pair's affine disparity coefficients on
-the evaluation grid (plain torch), moves them onto the compacted live tiles
-(kernel ``warp_transport``), evaluates the cost (kernel ``rect_ncc``; in
-geometric passes its with_geom variant, which also returns the fused
-geometric cost) and maps the cost planes back to the evaluation grid with a
-gather by ``bwd_cidx``.  A and B ride as one bf16 pair word (``pack_ab``): the
-reference applies that rounding unconditionally, so it is part of the
-algorithm.  Taps are sampled in f32 and costs map back in f32 (the
-reference's ``rect_tap_pack``/``rect_backmap_pack`` bf16 levers are not
+``rect_batched_ncc`` moves each pair's affine disparity coefficients onto
+the compacted live tiles (kernel ``warp_transport``, entry
+``coefficient_transport``: D and the packed AB word are computed at each
+claimed pixel from the plane fields, so no coefficient table is written),
+evaluates the cost (kernel ``rect_ncc``; in geometric passes its with_geom
+variant, which also returns the fused geometric cost) and maps the cost
+planes back to the evaluation grid with a gather by ``bwd_cidx``.  The
+transport's plain version is ``coefficient_tables`` (the reference's XLA
+pre-step in plain torch) followed by ``warp_transport_plain`` (the masked
+gather the Pallas kernel computes).  A and B ride as one bf16 pair word
+(``pack_ab``): the reference applies that rounding unconditionally, so it is
+part of the algorithm.  Taps are sampled in f32 and costs map back in f32
+(the reference's ``rect_tap_pack``/``rect_backmap_pack`` bf16 levers are not
 ported).
 """
 
@@ -30,8 +34,13 @@ TILE_W = 128
 
 
 def _to_bf16_bits(x: torch.Tensor) -> torch.Tensor:
-    """Round-to-nearest-even bf16 bits of an f32 tensor, as int64."""
-    return x.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+    """Round-to-nearest-even bf16 bits of an f32 tensor, as int64; NaN ->
+    0x7FC0 with its sign bit (the reference's conversion).  Done on the bits:
+    torch's own ``.to(torch.bfloat16)`` gives NaN other payloads, which also
+    differ between its CPU and CUDA builds."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    rne = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) & 0xFFFF
+    return torch.where(torch.isnan(x), ((u >> 16) & 0x8000) | 0x7FC0, rne)
 
 
 def pack_ab(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -54,8 +63,39 @@ def unpack_ab(ab: torch.Tensor):
 # kernel 2: coefficient transport onto the live tiles
 # ---------------------------------------------------------------------------
 
+def coefficient_tables(rect: RectContext, maps, normals, ws):
+    """Per-pair affine disparity tables on the evaluation grid:
+    D (S, C, H*Wg) f32 at each pixel's rounded rect coordinates (invalid or
+    huge -> -1e9) and the packed (A, B) words (S, C, H*Wg) int32."""
+    C, H, Wg = ws.shape
+    S = rect.pr.R_rr.shape[0]
+    R = rect.pr.R_rr.reshape(S, 1, 3, 3, 1, 1)
+    n = normals.movedim(-1, 1)[None]                       # (1, C, 3, H, Wg)
+    n_r = [n[:, :, 0] * R[:, :, i, 0] + n[:, :, 1] * R[:, :, i, 1]
+           + n[:, :, 2] * R[:, :, i, 2] for i in range(3)]  # (S, C, H, Wg)
+    f = rect.pr.K[:, 0].reshape(S, 1, 1, 1)
+    wply = ws[None]
+    scale = -rect.pr.baseline.reshape(S, 1, 1, 1) / torch.where(
+        wply.abs() < 1e-20, torch.full_like(wply, 1e-20), wply)
+    A = scale * n_r[0]
+    B = scale * n_r[1]
+    cterm = scale * n_r[2] * f
+    cx = rect.pr.K[:, 1].reshape(S, 1, 1, 1)
+    cy = rect.pr.K[:, 2].reshape(S, 1, 1, 1)
+    off_x = rect.srow[:, 3].reshape(S, 1, 1, 1)
+    off_y = rect.srow[:, 2].reshape(S, 1, 1, 1)
+    xb = maps.bwd_x.to(torch.float32).reshape(S, 1, H, Wg)
+    yb = maps.bwd_y.to(torch.float32).reshape(S, 1, H, Wg)
+    D = A * (xb + off_x - cx) + B * (yb + off_y - cy) + cterm
+    D = torch.where(torch.isfinite(D) & (D.abs() < 1e8), D,
+                    torch.full_like(D, -1e9))
+    return (D.reshape(S, C, H * Wg).contiguous(),
+            pack_ab(A, B).reshape(S, C, H * Wg).contiguous())
+
+
 def warp_transport_plain(tab_d, tab_ab, fwd_idx, fwd_valid):
-    """``table[fwd_idx]`` masked by ``fwd_valid`` (invalid: D=-1e9, AB=0).
+    """``table[fwd_idx]`` masked by ``fwd_valid`` (invalid: D=-1e9, AB=0),
+    the function of the Pallas transport kernel.
     tab_d (S, C, M) f32, tab_ab (S, C, M) int32; fwd_idx (S, P) int32;
     fwd_valid (S, K8, 128).  Returns D, AB (C, S, K8, 128)."""
     S, C, M = tab_d.shape
@@ -70,27 +110,53 @@ def warp_transport_plain(tab_d, tab_ab, fwd_idx, fwd_valid):
             ab.transpose(0, 1).reshape(shape).contiguous())
 
 
-def warp_transport(tab_d, tab_ab, fwd_idx, fwd_valid):
-    """Kernel 2 (csrc/warp_transport.cu) on CUDA tensors; the plain version
-    on CPU tensors.  Bit-identical to the masked gather."""
-    if tab_d.device.type == "cpu":
-        return warp_transport_plain(tab_d, tab_ab, fwd_idx, fwd_valid)
-    S, C, M = tab_d.shape
-    P = fwd_idx.shape[1]
-    K8 = fwd_valid.shape[1]
-    dev = tab_d.device
-    _lib.require(tab_d, "tab_d", torch.float32, (S, C, M), dev)
-    _lib.require(tab_ab, "tab_ab", torch.int32, (S, C, M), dev)
-    _lib.require(fwd_idx, "fwd_idx", torch.int32, (S, K8 * TILE_W), dev)
-    _lib.require(fwd_valid, "fwd_valid", torch.float32, (S, K8, TILE_W), dev)
+def coefficient_transport_plain(rect: RectContext, maps, normals, ws):
+    """Plain torch kernel 2: the coefficient tables of C plane fields
+    (normals (C, H, Wg, 3), ws (C, H, Wg)) on one map's grid, gathered onto
+    its compact pixels -> D (C, S, K8, 128) f32, AB (C, S, K8, 128) int32."""
+    return warp_transport_plain(*coefficient_tables(rect, maps, normals, ws),
+                                maps.fwd_idx, maps.fwd_valid)
+
+
+def coefficient_transport(rect: RectContext, maps, normals, ws):
+    """Kernel 2 (csrc/warp_transport.cu) on CUDA tensors: D and AB computed
+    at each claimed pixel, bit-identical to ``coefficient_transport_plain``,
+    which runs on CPU tensors."""
+    if ws.device.type == "cpu":
+        return coefficient_transport_plain(rect, maps, normals, ws)
+    C, H, Wg = ws.shape
+    S = rect.pr.R_rr.shape[0]
+    M = H * Wg
+    K8 = maps.fwd_valid.shape[1]
+    P = K8 * TILE_W
+    dev = ws.device
+    if P % (TILE_H * TILE_W):
+        raise ValueError(f"fwd_valid has {K8} rows, not whole tiles")
+    _lib.require(normals, "normals", torch.float32, (C, H, Wg, 3), dev)
+    _lib.require(ws, "ws", torch.float32, (C, H, Wg), dev)
+    _lib.require(maps.bwd_x, "bwd_x", torch.int64, (S, M), dev)
+    _lib.require(maps.bwd_y, "bwd_y", torch.int64, (S, M), dev)
+    _lib.require(maps.fwd_idx, "fwd_idx", torch.int32, (S, P), dev)
+    _lib.require(maps.fwd_valid, "fwd_valid", torch.float32, (S, K8, TILE_W),
+                 dev)
+    _lib.require(rect.pr.R_rr, "R_rr", torch.float32, (S, 3, 3), dev)
+    _lib.require(rect.pr.K, "K", torch.float32, (S, 3), dev)
+    _lib.require(rect.pr.baseline, "baseline", torch.float32, (S,), dev)
+    _lib.require(rect.srow, "srow", torch.float32, (S, 128), dev)
     out_d = torch.empty((C, S, K8, TILE_W), dtype=torch.float32, device=dev)
     out_ab = torch.empty((C, S, K8, TILE_W), dtype=torch.int32, device=dev)
+    for name, t in (("fwd_idx", maps.fwd_idx), ("fwd_valid", maps.fwd_valid)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     lib = _lib.library()
     with torch.cuda.device(dev):
         err = lib.acmmp_warp_transport(
-            tab_d.data_ptr(), tab_ab.data_ptr(), fwd_idx.data_ptr(),
-            fwd_valid.data_ptr(), out_d.data_ptr(), out_ab.data_ptr(),
-            C, S, M, P, _lib.stream_ptr(out_d))
+            normals.data_ptr(), ws.data_ptr(), maps.bwd_x.data_ptr(),
+            maps.bwd_y.data_ptr(), maps.fwd_idx.data_ptr(),
+            maps.fwd_valid.data_ptr(), rect.pr.R_rr.data_ptr(),
+            rect.pr.K.data_ptr(), rect.pr.baseline.data_ptr(),
+            rect.srow.data_ptr(), out_d.data_ptr(), out_ab.data_ptr(), C, S,
+            M, P, _lib.stream_ptr(out_d))
     _lib.check(err, "warp_transport")
     _lib.LAUNCHES["warp_transport"] += 1
     return out_d, out_ab
@@ -270,36 +336,6 @@ def rect_ncc(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
 # the batched evaluation around the kernels
 # ---------------------------------------------------------------------------
 
-def coefficient_tables(rect: RectContext, maps, normals, ws):
-    """Per-pair affine disparity tables on the evaluation grid:
-    D (S, C, H*Wg) f32 at each pixel's rounded rect coordinates (invalid or
-    huge -> -1e9) and the packed (A, B) words (S, C, H*Wg) int32."""
-    C, H, Wg = ws.shape
-    S = rect.pr.R_rr.shape[0]
-    R = rect.pr.R_rr.reshape(S, 1, 3, 3, 1, 1)
-    n = normals.movedim(-1, 1)[None]                       # (1, C, 3, H, Wg)
-    n_r = [n[:, :, 0] * R[:, :, i, 0] + n[:, :, 1] * R[:, :, i, 1]
-           + n[:, :, 2] * R[:, :, i, 2] for i in range(3)]  # (S, C, H, Wg)
-    f = rect.pr.K[:, 0].reshape(S, 1, 1, 1)
-    wply = ws[None]
-    scale = -rect.pr.baseline.reshape(S, 1, 1, 1) / torch.where(
-        wply.abs() < 1e-20, torch.full_like(wply, 1e-20), wply)
-    A = scale * n_r[0]
-    B = scale * n_r[1]
-    cterm = scale * n_r[2] * f
-    cx = rect.pr.K[:, 1].reshape(S, 1, 1, 1)
-    cy = rect.pr.K[:, 2].reshape(S, 1, 1, 1)
-    off_x = rect.srow[:, 3].reshape(S, 1, 1, 1)
-    off_y = rect.srow[:, 2].reshape(S, 1, 1, 1)
-    xb = maps.bwd_x.to(torch.float32).reshape(S, 1, H, Wg)
-    yb = maps.bwd_y.to(torch.float32).reshape(S, 1, H, Wg)
-    D = A * (xb + off_x - cx) + B * (yb + off_y - cy) + cterm
-    D = torch.where(torch.isfinite(D) & (D.abs() < 1e8), D,
-                    torch.full_like(D, -1e9))
-    return (D.reshape(S, C, H * Wg).contiguous(),
-            pack_ab(A, B).reshape(S, C, H * Wg).contiguous())
-
-
 def backmap(cost, maps, out_hw, fill):
     """(C, S, 8N, 128) cost planes -> (C, S, H, Wg) through ``bwd_cidx``;
     pixels without a claimed rect pixel read ``fill``."""
@@ -321,8 +357,7 @@ def rect_batched_ncc(rect: RectContext, normals, ws, params: PatchMatchParams,
     ``geom_max_cost`` there."""
     C, H, Wg = ws.shape
     maps = rect.maps[0 if parity is None else 1 + parity]
-    tab_d, tab_ab = coefficient_tables(rect, maps, normals, ws)
-    D, AB = warp_transport(tab_d, tab_ab, maps.fwd_idx, maps.fwd_valid)
+    D, AB = coefficient_transport(rect, maps, normals, ws)
     args = (rect.srow, rect.tile_oy, rect.tile_ox, rect.rect_ref,
             rect.rect_src, D, AB, maps.fwd_valid, params)
     if not with_geom:

@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    started together; build seconds printed);
 2. check the photometric pass's kernels against their plain-torch versions
    on the card, at the shapes of the 1024x768x8src photometric pass (the
-   C=9 and C=5 parity evaluations and the C=1 init evaluation); rect_ncc
-   (both variants, phase 4 too) must equal its plain version bit for bit;
+   C=9 and C=5 parity evaluations and the C=1 init evaluation; the source
+   warp with its tile gate on and off); every kernel (phase 4 too) must
+   equal its plain version bit for bit;
 3. drive the photometric path -- ``pipeline.patchmatch.run_patchmatch`` on
    the CubeRoom 1024x768x8src scene -- once warm and three times timed, with
    the launch counters zeroed just before and read just after; its median
@@ -66,7 +67,6 @@ COST_TOL = 1e-4          # |kernel - plain| on costs where both agree on `bad`
 #                          bit-identical)
 BAD_AGREE_MIN = 0.999    # fraction of pixels whose `bad` decision agrees
 GEOM_TOL = 1e-4          # |kernel - plain| on geom costs; gok mask identical
-WARP_TOL = 1e-4          # greylevels, valid samples; SENTINEL mask identical
 DEPTH_ERR_MAX = 0.0032   # median relative depth error gate of the bench
 FIXTURE_TOL = 2e-2       # scripts/drift_gate.py rtol/atol
 # NVIDIA H100 SXM peaks (data sheet, 700 W): HBM bytes/s and fp32 FLOP/s
@@ -185,13 +185,14 @@ def median_rel_err(depth, gt) -> float:
 
 
 def packed(normals, ws, parity):
-    """(C, H, W[, 3]) plane fields -> that parity's packed half-grids."""
+    """(C, H, W[, 3]) plane fields -> that parity's packed half-grids,
+    contiguous as the pass's batches are."""
     from acmmp_spherical_torch.ops.sampling import checkerboard_pack
 
     if parity is None:
-        return normals, ws
-    return (checkerboard_pack(normals.movedim(-1, 0), parity).movedim(0, -1),
-            checkerboard_pack(ws, parity))
+        return normals.contiguous(), ws.contiguous()
+    return (checkerboard_pack(normals.movedim(-1, 0), parity).movedim(0, -1)
+            .contiguous(), checkerboard_pack(ws, parity))
 
 
 def check_rect_case(name, rect, normals, ws, parity, p, with_geom):
@@ -202,10 +203,9 @@ def check_rect_case(name, rect, normals, ws, parity, p, with_geom):
     from acmmp_spherical_torch.ops.kernels import ncc_rect as NR
 
     maps = rect.maps[0 if parity is None else 1 + parity]
-    tab_d, tab_ab = NR.coefficient_tables(rect, maps, normals, ws)
-    targs = (tab_d, tab_ab, maps.fwd_idx, maps.fwd_valid)
-    D, AB = NR.warp_transport(*targs)
-    Dp, ABp = NR.warp_transport_plain(*targs)
+    targs = (rect, maps, normals, ws)
+    D, AB = NR.coefficient_transport(*targs)
+    Dp, ABp = NR.coefficient_transport_plain(*targs)
     torch.cuda.synchronize()
     if not (torch.equal(D, Dp) and torch.equal(AB, ABp)):
         raise AssertionError(f"warp_transport {name}: not bit-identical")
@@ -251,12 +251,17 @@ def check_rect_case(name, rect, normals, ws, parity, p, with_geom):
     ncc_bound = bound(nbytes(D, AB, maps.fwd_valid, rect.srow, rect.tile_oy,
                              rect.tile_ox, *frames, *outs),
                       live_tiles * 1024 * C * n_taps * TAP_FLOPS)
-    transport_bound = bound(nbytes(*targs, D, AB), 0)
+    # the transport reads the fields, the claim map (bwd_x, bwd_y), the
+    # compact map and the pair constants once and writes D and AB once
+    transport_bound = bound(nbytes(
+        normals, ws, maps.bwd_x, maps.bwd_y, maps.fwd_idx, maps.fwd_valid,
+        rect.pr.R_rr, rect.pr.K, rect.pr.baseline, rect.srow, D, AB), 0)
     return dict(
         ncc_max_abs_err=max(err, gerr or 0.0),
         transport_max_abs_err=float((D - Dp).abs().max()),
-        transport_ms=cuda_ms(lambda: NR.warp_transport(*targs), 10),
-        transport_plain_ms=cuda_ms(lambda: NR.warp_transport_plain(*targs), 3),
+        transport_ms=cuda_ms(lambda: NR.coefficient_transport(*targs), 10),
+        transport_plain_ms=cuda_ms(
+            lambda: NR.coefficient_transport_plain(*targs), 3),
         transport_bound=transport_bound,
         ncc_ms=cuda_ms(lambda: NR.rect_ncc(*rargs, **sd), 5),
         ncc_plain_ms=cuda_ms(lambda: NR.rect_ncc_plain(*rargs, **sd), 1),
@@ -289,29 +294,29 @@ def rect_entry(results, names, prefix):
     return e
 
 
-def check_warp(name, fn, plain, args, valid_flops, tol, results):
-    """A source warp against its plain version: SENTINEL masks identical,
-    valid samples within ``tol``."""
+def check_warp(name, fn, plain, args, valid_flops, results):
+    """A source warp against its plain version, bit for bit, with its tile
+    gate (the last argument) off and as given; timed as given."""
     import torch
 
     from acmmp_spherical_torch.ops.rectify import SENTINEL_THRESH
 
-    k, pl = fn(*args), plain(*args)
-    torch.cuda.synchronize()
-    vk, vp = k > SENTINEL_THRESH, pl > SENTINEL_THRESH
-    if not torch.equal(vk, vp):
-        raise AssertionError(f"{name}: SENTINEL masks differ")
-    err = float((k - pl)[vk].abs().max())
-    if err > tol:
-        raise AssertionError(f"{name}: max err {err}")
+    for gated in (args[:-1] + (None,), args):
+        k, pl = fn(*gated), plain(*gated)
+        torch.cuda.synchronize()
+        err = float((k - pl).abs().max())
+        if not torch.equal(k, pl):
+            raise AssertionError(f"{name} (gate {gated[-1]}): not "
+                                 f"bit-identical, max err {err}")
+    valid = k > SENTINEL_THRESH
     src = "warp_image.py:215" if name == "warp_src_frames" else \
         "warp_image.py:263"
     results[name] = kernel_entry(
         "warp_image.cu", src, err, cuda_ms(lambda: fn(*args), 10),
         cuda_ms(lambda: plain(*args), 2),
-        bound(nbytes(args[0], k), int(vk.sum()) * valid_flops))
+        bound(nbytes(args[0], k), int(valid.sum()) * valid_flops))
     log(f"{name} ok: {results[name]}, valid fraction "
-        f"{float(vk.float().mean()):.3f}")
+        f"{float(valid.float().mean()):.3f}")
 
 
 def check_phot_kernels(inputs, params, results):
@@ -330,7 +335,7 @@ def check_phot_kernels(inputs, params, results):
     check_warp("warp_src_frames", WI.warp_src_frames, WI.warp_src_frames_plain,
                (inputs.src_images, rect.pr.H1inv, cams.width, cams.height,
                 rect_shape(H, W), params.rect_warp_hw), BICUBIC_FLOPS,
-               WARP_TOL, results)
+               results)
     xs, ys = grid_coords(H, W, inputs.ref_image.device)
     dmin, dmax = inputs.depth_range[0], inputs.depth_range[1]
     planes = [R.random_plane_hypothesis(R.key(100 + i), inputs.ref_cam, xs,
@@ -366,7 +371,7 @@ def check_geom_kernels(inputs, params, seeds, results):
                WI.warp_src_disparities_plain,
                (inputs.src_depths, rect.pr.H1inv, rect.pr.R_sr, cams.K,
                 rect.pr.K[:, 0] * rect.pr.baseline, cams.width, cams.height,
-                rect_shape(H, W), params.rect_warp_hw), DISP_FLOPS, 0.0,
+                rect_shape(H, W), params.rect_warp_hw), DISP_FLOPS,
                results)
     xs, ys = grid_coords(H, W, inputs.ref_image.device)
     cam = inputs.ref_cam

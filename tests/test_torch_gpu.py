@@ -6,11 +6,12 @@ JAX, so they also run on a GPU host without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances (as chip_smoke.py): warp_transport bit-exact; rect_ncc (both
-variants, every candidate count and tap pattern) bit-exact; warp_src_frames
-within 1e-4 greylevels and warp_src_disparities equal, each with an identical
-SENTINEL mask; ncc_window (both variants, every field count and tap
-pattern) and window_sample bit-exact; the
+Tolerances (as chip_smoke.py): warp_transport (``coefficient_transport``,
+every candidate count, map and pass, and on edge fields) bit-exact; rect_ncc
+(both variants, every candidate count and tap pattern) bit-exact;
+warp_src_frames (gate on and off, bench and odd frames) and
+warp_src_disparities bit-exact; ncc_window (both variants, every field count
+and tap pattern) and window_sample bit-exact; the
 golden photometric and geometric passes on the rectified path, and the
 photometric ones on the windowed and exact paths, within drift_gate's 2e-2
 of their fixtures.
@@ -86,11 +87,9 @@ def test_cuda_kernels_match_plain(cuda):
                      for p in planes])
     w = torch.stack([checkerboard_pack(p[1], 0) for p in planes])
     maps = rect.maps[1]
-    tab_d, tab_ab = NR.coefficient_tables(rect, maps, n, w)
     _lib.reset_launch_counts()
-    D, AB = NR.warp_transport(tab_d, tab_ab, maps.fwd_idx, maps.fwd_valid)
-    Dp, ABp = NR.warp_transport_plain(tab_d, tab_ab, maps.fwd_idx,
-                                      maps.fwd_valid)
+    D, AB = NR.coefficient_transport(rect, maps, n, w)
+    Dp, ABp = NR.coefficient_transport_plain(rect, maps, n, w)
     assert torch.equal(D, Dp) and torch.equal(AB, ABp)
     args = (rect.srow, rect.tile_oy, rect.tile_ox, rect.rect_ref,
             rect.rect_src, D, AB, maps.fwd_valid, params)
@@ -101,9 +100,7 @@ def test_cuda_kernels_match_plain(cuda):
              inputs.src_cams.height, rect_shape(H, W), params.rect_warp_hw)
     fk, fp = WI.warp_src_frames(*wargs), WI.warp_src_frames_plain(*wargs)
     torch.cuda.synchronize()
-    vk = fk > SENTINEL_THRESH
-    assert torch.equal(vk, fp > SENTINEL_THRESH)
-    assert float((fk - fp)[vk].abs().max()) <= 1e-4
+    assert torch.equal(fk, fp) and bool((fk > SENTINEL_THRESH).any())
     assert _lib.LAUNCHES == {"rect_ncc": 1, "rect_ncc_geom": 0,
                              "warp_transport": 1, "warp_src_frames": 1,
                              "warp_src_disparities": 0, "ncc_window": 0,
@@ -124,9 +121,8 @@ def test_geom_kernels_match_plain(cuda):
     sk = WI.warp_src_disparities(*dargs)
     sp = WI.warp_src_disparities_plain(*dargs)
     torch.cuda.synchronize()
-    vk = sk > SENTINEL_THRESH
-    assert torch.equal(vk, sp > SENTINEL_THRESH) and float(vk.float().mean()) > 0.05
-    assert torch.equal(sk[vk], sp[vk])
+    assert torch.equal(sk, sp)
+    assert float((sk > SENTINEL_THRESH).float().mean()) > 0.05
     xs, ys = grid_coords(H, W, cuda)
     from acmmp_spherical_torch.core import geometry as G
 
@@ -137,8 +133,7 @@ def test_geom_kernels_match_plain(cuda):
     ws = torch.stack([checkerboard_pack(w * (1.0 + 0.005 * k), 1)
                       for k in range(-2, 3)])
     maps = rect.maps[2]
-    tab_d, tab_ab = NR.coefficient_tables(rect, maps, normals, ws)
-    D, AB = NR.warp_transport(tab_d, tab_ab, maps.fwd_idx, maps.fwd_valid)
+    D, AB = NR.coefficient_transport(rect, maps, normals, ws)
     args = (rect.srow, rect.tile_oy, rect.tile_ox, rect.rect_ref,
             rect.rect_src, D, AB, maps.fwd_valid, params)
     ck, gk = NR.rect_ncc(*args, sdisp=rect.rect_sdisp)
@@ -176,8 +171,7 @@ def test_rect_ncc_chunks_match_plain(cuda, C, with_geom, pattern):
     ws = torch.stack([checkerboard_pack(w * (1.0 + 0.005 * (k - C // 2)), 0)
                       for k in range(C)])
     maps = rect.maps[1]
-    D, AB = NR.warp_transport(*NR.coefficient_tables(rect, maps, normals, ws),
-                              maps.fwd_idx, maps.fwd_valid)
+    D, AB = NR.coefficient_transport(rect, maps, normals, ws)
     args = (rect.srow, rect.tile_oy, rect.tile_ox, rect.rect_ref,
             rect.rect_src, D, AB, maps.fwd_valid, params)
     kw = dict(sdisp=rect.rect_sdisp) if with_geom else {}
@@ -188,6 +182,140 @@ def test_rect_ncc_chunks_match_plain(cuda, C, with_geom, pattern):
         assert a.shape == (C, *maps.fwd_valid.shape) and torch.equal(a, b)
     assert bool(((p[0] if with_geom else p) < params.cost_max).any())
     assert _lib.LAUNCHES["rect_ncc_geom" if with_geom else "rect_ncc"] == 1
+
+
+def _transport_fields(inputs, seeds, parity, C):
+    """C plane fields on the grid of ``parity``'s map: the seed (geometric
+    pass) or random planes (photometric pass), w scaled by 1 + 0.05 k."""
+    from acmmp_spherical_torch.core import geometry as G
+
+    H, W = inputs.ref_image.shape
+    dev = inputs.ref_image.device
+    xs, ys = grid_coords(H, W, dev)
+    if seeds is not None:
+        n = G.normal_world_to_cam(inputs.ref_cam, seeds["seed_normal_world"])
+        w = G.dist_to_origin(inputs.ref_cam, xs, ys, seeds["seed_depth"], n)
+        planes = [(n, w * (1.0 + 0.05 * (k - C // 2))) for k in range(C)]
+    else:
+        planes = [R.random_plane_hypothesis(
+            R.key(40 + k), inputs.ref_cam, xs, ys, inputs.depth_range[0],
+            inputs.depth_range[1]) for k in range(C)]
+    if parity is None:
+        return (torch.stack([a for a, _ in planes]).contiguous(),
+                torch.stack([b for _, b in planes]).contiguous())
+    return (torch.stack([checkerboard_pack(a.movedim(-1, 0), parity)
+                         .movedim(0, -1) for a, _ in planes]).contiguous(),
+            torch.stack([checkerboard_pack(b, parity) for _, b in planes]))
+
+
+def _transport_problem(cuda, kind):
+    if kind == "geom":
+        inputs, params, seeds, _ = golden_geom_problem(cuda)
+    else:
+        inputs, params = _golden(cuda)[:2]
+        seeds = None
+    return inputs, prepare_inputs(inputs, params).rect, seeds
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["phot", "geom"])
+@pytest.mark.parametrize("parity", [None, 0, 1], ids=["full", "parity0",
+                                                      "parity1"])
+@pytest.mark.parametrize("C", [1, 5, 9])
+def test_coefficient_transport_matches_plain(cuda, C, parity, kind):
+    """Kernel 2 computes D and AB at each claimed pixel: bit-identical to
+    the coefficient tables + masked gather, for C = 1, 5 and 9 on the full
+    map and both parity maps, in the photometric pass's context (random
+    planes) and the geometric pass's (planes around the seed)."""
+    inputs, rect, seeds = _transport_problem(cuda, kind)
+    maps = rect.maps[0 if parity is None else 1 + parity]
+    n, w = _transport_fields(inputs, seeds, parity, C)
+    _lib.reset_launch_counts()
+    D, AB = NR.coefficient_transport(rect, maps, n, w)
+    Dp, ABp = NR.coefficient_transport_plain(rect, maps, n, w)
+    torch.cuda.synchronize()
+    assert D.shape == (C, *maps.fwd_valid.shape)
+    assert torch.equal(D, Dp) and torch.equal(AB, ABp)
+    assert bool((D > -1e9).any())
+    assert _lib.LAUNCHES["warp_transport"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("parity", [None, 0, 1], ids=["full", "parity0",
+                                                      "parity1"])
+def test_coefficient_transport_edge_fields(cuda, parity):
+    """Edge fields at claimed pixels: w = 0, +-1e-21, +-1e-20, 1e-30, -1e30
+    and normals with inf, NaN or 1e30 components (A or B inf or NaN, D
+    -1e9): bit-identical to the plain version, NaN words included."""
+    inputs, rect, _ = _transport_problem(cuda, "phot")
+    maps = rect.maps[0 if parity is None else 1 + parity]
+    n, w = _transport_fields(inputs, None, parity, 3)
+    ok = maps.fwd_valid[0].reshape(-1) > 0.5
+    m = torch.unique(maps.fwd_idx[0][ok].long())
+    m = m[torch.linspace(0, len(m) - 1, 40, device=cuda).long()]
+    wf, nf = w.reshape(3, -1), n.reshape(3, -1, 3)
+    inf, nan = float("inf"), float("nan")
+    wf[:, m[:7]] = torch.tensor([0.0, 1e-21, -1e-21, 1e-20, -1e-20, 1e-30,
+                                 -1e30], device=cuda)
+    nf[:, m[7], 0] = inf
+    nf[:, m[8], 1] = -inf
+    nf[:, m[9], 2] = nan
+    nf[:, m[10], 0] = -nan
+    nf[:, m[11]] = 1e30
+    nf[:, m[12], 0], nf[:, m[12], 1] = inf, -inf
+    wf[:, m[13]] = 0.0
+    nf[:, m[13], 1] = inf
+    D, AB = NR.coefficient_transport(rect, maps, n, w)
+    Dp, ABp = NR.coefficient_transport_plain(rect, maps, n, w)
+    torch.cuda.synchronize()
+    assert torch.equal(D, Dp) and torch.equal(AB, ABp)
+    hi = (AB.long() >> 16) & 0x7FFF
+    assert bool((hi == 0x7FC0).any()) and bool((hi == 0x7F80).any())
+
+
+@pytest.mark.gpu
+def test_card_path_does_not_build_coefficient_tables(cuda, monkeypatch):
+    """On the card rect_batched_ncc transports through the kernel: the
+    plain-torch tables are never built."""
+    inputs, rect, _ = _transport_problem(cuda, "phot")
+    n, w = _transport_fields(inputs, None, 0, 5)
+    params = _golden(cuda)[1]
+    expect = NR.rect_batched_ncc(rect, n, w, params, parity=0)
+
+    def refuse(*_):
+        raise AssertionError("coefficient_tables ran on the card path")
+
+    monkeypatch.setattr(NR, "coefficient_tables", refuse)
+    _lib.reset_launch_counts()
+    got = NR.rect_batched_ncc(rect, n, w, params, parity=0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, expect)
+    assert _lib.LAUNCHES["warp_transport"] == 1
+    assert _lib.LAUNCHES["rect_ncc"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gate", ["gate", "no_gate"])
+@pytest.mark.parametrize("frame", ["bench", "odd"])
+def test_warp_src_frames_match_plain(cuda, frame, gate):
+    """Kernel 3 bit for bit, with the per-tile gate on and off, on the
+    1024x768x8src bench frames and the 95x64 odd frames."""
+    from acmmp_spherical_torch.bench import BENCH_SCENE
+
+    scene = BENCH_SCENE if frame == "bench" else dict(GOLDEN_SCENE, width=95)
+    inputs, params = make_problem(**scene, device=cuda)[:2]
+    rect = prepare_inputs(inputs, params).rect
+    H, W = inputs.ref_image.shape
+    src = inputs.src_cams
+    args = (inputs.src_images, rect.pr.H1inv, src.width, src.height,
+            rect_shape(H, W), params.rect_warp_hw if gate == "gate" else None)
+    _lib.reset_launch_counts()
+    fk, fp = WI.warp_src_frames(*args), WI.warp_src_frames_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(fk, fp)
+    valid = float((fk > SENTINEL_THRESH).float().mean())
+    assert 0.05 < valid < 1.0
+    assert _lib.LAUNCHES["warp_src_frames"] == 1
 
 
 @pytest.mark.gpu

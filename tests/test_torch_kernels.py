@@ -3,7 +3,8 @@ versions on the CPU against the Pallas kernels in interpret mode (the CUDA
 kernels against the plain versions: tests/test_torch_gpu.py).
 
 Shapes: the golden problem cut to S=2 pairs and C=2 candidates.
-Tolerances: kernel 2 (warp_transport) bit-exact; kernel 3
+Tolerances: kernel 2's masked gather (warp_transport_plain) bit-exact (its
+coefficient tables: tests/test_torch_transport.py); kernel 3
 (warp_src_frames) within 1e-4 greylevels on valid samples with an identical
 SENTINEL mask; kernel 1 (rect_ncc) with the cost_max ("bad") mask
 identical on >= 99.9% of pixels and costs within 1e-4 absolute on >= 99.9%
@@ -104,7 +105,7 @@ def test_warp_transport_plain_matches_pallas(setup):
     win = JRT.warp_windows(p.rect_warp_hw)[1]
     jd, jab = JNR.warp_transport(jnp.asarray(D), ab, maps, win, interpret=True)
     tab_ab = torch.tensor(np.asarray(ab).view(np.int32)).reshape(S2, 2, -1)
-    td, tab = TNR.warp_transport(
+    td, tab = TNR.warp_transport_plain(
         torch.from_numpy(D).reshape(S2, 2, -1), tab_ab,
         torch.tensor(np.asarray(maps.fwd_idx)),
         torch.tensor(np.asarray(maps.fwd_valid)))
@@ -195,8 +196,7 @@ def test_rect_ncc_plain_candidates_are_independent(setup, with_geom):
     normals = torch.stack([n[0]] * 5)
     ws = torch.stack([w[0] * (1.0 + 0.01 * k) for k in range(-2, 3)])
     maps = t.maps[1]
-    D, AB = TNR.warp_transport(*TNR.coefficient_tables(t, maps, normals, ws),
-                               maps.fwd_idx, maps.fwd_valid)
+    D, AB = TNR.coefficient_transport(t, maps, normals, ws)
     kw = {}
     if with_geom:
         rng = np.random.default_rng(11)
