@@ -16,18 +16,17 @@
 // of neighbouring pixels overlap heavily (one output row walks a band of
 // 4 source rows), so the traffic that reaches device memory is about one
 // read of the source band per frame -- bytes, 0.03 ms at the bench point.
-// What held the first version (one 1024-thread block per tile, every thread
-// evaluating the gate's four homographies and eight IEEE divisions) was
-// instruction issue: two thirds of the bench frames are SENTINEL, and their
-// threads did the gate's arithmetic only to store one float.  Design of the
-// bicubic warp: one block per (8, 128) tile, each thread the 8 rows of one
-// column; each warp evaluates the gate once, one corner per lane (mod 4),
-// combined with two shuffle steps; a dead tile is filled with 16-byte
-// SENTINEL stores; on a live tile each thread computes its pixels'
-// coordinates (two IEEE divisions each) and reads the 16 taps through L1,
-// its rows sharing three of their four source rows.  No window staging: the
-// footprint of a tile in the source varies with the homography, and the
-// caches already hold the band.
+// Two thirds of the bench frames are SENTINEL, so the gate (four homographies,
+// eight IEEE divisions) must not be paid per pixel: evaluated by every
+// thread it costs more than the warp itself.  Design of the bicubic warp:
+// one block per (8, 128) tile, each thread the 8 rows of one column; each
+// warp evaluates the gate once, one corner per lane (mod 4), combined with
+// two shuffle steps; a dead tile is filled with 16-byte SENTINEL stores; on
+// a live tile each thread computes its pixels' coordinates (two IEEE
+// divisions each) and reads the 16 taps through L1, its rows sharing three
+// of their four source rows.  No window staging: the footprint of a tile in
+// the source varies with the homography, and the caches already hold the
+// band.  The disparity warp below still evaluates the gate per thread.
 
 #include <cuda_runtime.h>
 

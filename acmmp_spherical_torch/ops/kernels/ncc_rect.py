@@ -35,9 +35,9 @@ TILE_W = 128
 
 def _to_bf16_bits(x: torch.Tensor) -> torch.Tensor:
     """Round-to-nearest-even bf16 bits of an f32 tensor, as int64; NaN ->
-    0x7FC0 with its sign bit (the reference's conversion).  Done on the bits:
-    torch's own ``.to(torch.bfloat16)`` gives NaN other payloads, which also
-    differ between its CPU and CUDA builds."""
+    0x7FC0 with its sign bit (the reference's conversion).  Done on the bits,
+    the same on every device: torch's own ``.to(torch.bfloat16)`` writes
+    other NaN words (0xFFFF on the CPU)."""
     u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     rne = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) & 0xFFFF
     return torch.where(torch.isnan(x), ((u >> 16) & 0x8000) | 0x7FC0, rne)
@@ -143,11 +143,11 @@ def coefficient_transport(rect: RectContext, maps, normals, ws):
     _lib.require(rect.pr.K, "K", torch.float32, (S, 3), dev)
     _lib.require(rect.pr.baseline, "baseline", torch.float32, (S,), dev)
     _lib.require(rect.srow, "srow", torch.float32, (S, 128), dev)
+    for name, t in (("fwd_idx", maps.fwd_idx), ("fwd_valid", maps.fwd_valid)):
+        if t.data_ptr() % 16:   # read as 16-byte vectors
+            raise ValueError(f"{name} must be 16-byte aligned")
     out_d = torch.empty((C, S, K8, TILE_W), dtype=torch.float32, device=dev)
     out_ab = torch.empty((C, S, K8, TILE_W), dtype=torch.int32, device=dev)
-    for name, t in (("fwd_idx", maps.fwd_idx), ("fwd_valid", maps.fwd_valid)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
     lib = _lib.library()
     with torch.cuda.device(dev):
         err = lib.acmmp_warp_transport(
