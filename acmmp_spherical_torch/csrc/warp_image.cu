@@ -26,7 +26,7 @@
 // divisions each) and reads the 16 taps through L1, its rows sharing three
 // of their four source rows.  No window staging: the footprint of a tile in
 // the source varies with the homography, and the caches already hold the
-// band.  The disparity warp below still evaluates the gate per thread.
+// band.  The disparity warp below has the same layout.
 
 #include <cuda_runtime.h>
 
@@ -70,26 +70,9 @@ __device__ __forceinline__ int floor_to_int(float v) {
 
 // The Pallas kernel's per-tile gate (warp_image.py:89-105): every corner in
 // front of the frame, the corner bbox near the image and inside the
-// (WR, WC) window.  Uniform over the (8, 128) tile at (x00, y00).
-__device__ __forceinline__ bool tile_live(const float* h, float x00, float y00,
-                                          float wi, float hi, int WR, int WC) {
-  const Coords c0 = rect_coords(h, x00, y00);
-  const Coords c1 = rect_coords(h, x00, y00 + 7.0f);
-  const Coords c2 = rect_coords(h, x00 + 127.0f, y00);
-  const Coords c3 = rect_coords(h, x00 + 127.0f, y00 + 7.0f);
-  const bool corners_ok = fminf(fminf(c0.z, c1.z), fminf(c2.z, c3.z)) > 1e-6f;
-  const float cx_lo = fminf(fminf(c0.ox, c1.ox), fminf(c2.ox, c3.ox));
-  const float cx_hi = fmaxf(fmaxf(c0.ox, c1.ox), fmaxf(c2.ox, c3.ox));
-  const float cy_lo = fminf(fminf(c0.oy, c1.oy), fminf(c2.oy, c3.oy));
-  const float cy_hi = fmaxf(fmaxf(c0.oy, c1.oy), fmaxf(c2.oy, c3.oy));
-  return corners_ok && cx_hi >= -2.0f && cx_lo < wi + 2.0f &&
-         cy_hi >= -2.0f && cy_lo < hi + 2.0f &&
-         (cx_hi - cx_lo < (float)WC - 8.0f) && (cy_hi - cy_lo < (float)WR - 8.0f);
-}
-
-// tile_live evaluated once per warp: lane k (mod 4) maps corner k and two
-// shuffle steps combine the four; uniform over the warp and over the tile.
-// Needs every lane of the warp.
+// (WR, WC) window.  Uniform over the (8, 128) tile at (x00, y00); evaluated
+// once per warp: lane k (mod 4) maps corner k and two shuffle steps combine
+// the four.  Needs every lane of the warp.
 __device__ __forceinline__ bool tile_live_warp(const float* h, float x00,
                                                float y00, float wi, float hi,
                                                int WR, int WC) {
@@ -172,41 +155,65 @@ warp_src_kernel(const float* __restrict__ imgs, const float* __restrict__ consts
 // float ox, oy, not the truncated ones.  SENTINEL where z <= 0, the pixel is
 // off the source image (ox, oy >= 0 first, then the truncated index below
 // the width/height), the depth or z_rect is not positive, or the tile fails
-// the gate.  Bound: one gathered read + one write per output pixel (bytes);
-// same block layout as the bicubic warp.
-__global__ void __launch_bounds__(1024)
+// the gate.
+//
+// Bound on the H100: one gathered read + one write per output pixel -- at
+// the bench point 75 MB of output (8 x 1312 x 1792 f32) and 25 MB of source
+// depths (8 x 768 x 1024 f32), 0.030 ms (bytes).  Design: the bicubic
+// warp's -- one block per (8, 128) tile, each thread kDispRows rows of one
+// column, the pair's 19 constants in registers, the gate once per warp,
+// 16-byte SENTINEL stores for a dead tile.  A live pixel costs its
+// coordinates (two IEEE divisions), the in-image test, one truncated-nearest
+// depth read through L1/L2, u and v (two IEEE divisions by fx and fy, as the
+// plain version divides, not reciprocals), z_rect and fB / max(z_rect,
+// 1e-6).  Measured at 1.6x the bound (PERF.md section 6: 8 rows per thread
+// the fastest of 1-8): the 100 MB move at about 2 TB/s, while a live
+// tile's threads run five dependent IEEE divisions per row before its
+// store; no counter here tells the two apart.
+constexpr int kDispRows = 8;                 // tile rows per thread
+constexpr int kDispThreads = 128 * 8 / kDispRows;
+
+__global__ void __launch_bounds__(kDispThreads)
 warp_disp_kernel(const float* __restrict__ depths,
                  const float* __restrict__ consts, float* __restrict__ out,
                  int Hp, int Wp, int HpR, int WpR, int WR, int WC, int gate) {
   const int s = blockIdx.z;
-  const int tx = blockIdx.x, ty = blockIdx.y;
-  const float* h = consts + s * 19;
+  float h[19];
+#pragma unroll
+  for (int i = 0; i < 19; ++i) h[i] = consts[s * 19 + i];
   const float wi = h[9], hi = h[10];
-  const float x00 = 128.0f * (float)tx - (float)kPadX;
-  const float y00 = 8.0f * (float)ty - (float)kPadY;
-  const int px = tx * 128 + threadIdx.x;
-  const int py = ty * 8 + threadIdx.y;
-  float* dst = out + ((long long)s * HpR + py) * WpR + px;
+  const float x00 = 128.0f * (float)blockIdx.x - (float)kPadX;
+  const float y00 = 8.0f * (float)blockIdx.y - (float)kPadY;
+  float* tile = out + ((long long)s * HpR + blockIdx.y * 8) * WpR +
+                blockIdx.x * 128;
 
-  if (gate && !tile_live(h, x00, y00, wi, hi, WR, WC)) {
-    *dst = kSentinel;
+  if (gate && !tile_live_warp(h, x00, y00, wi, hi, WR, WC)) {
+    const float4 sv = make_float4(kSentinel, kSentinel, kSentinel, kSentinel);
+    for (int i = threadIdx.y * 128 + threadIdx.x; i < 256; i += kDispThreads)
+      reinterpret_cast<float4*>(tile + (i >> 5) * WpR)[i & 31] = sv;
     return;
   }
-  const Coords c = rect_coords(h, (float)threadIdx.x + x00,
-                               (float)threadIdx.y + y00);
-  // ox < wi  <=>  (int)ox < wi  for ox >= 0 and an integer-valued wi
-  if (!((c.z > 0.0f) && (c.ox >= 0.0f) && (c.oy >= 0.0f) && (c.ox < wi) &&
-        (c.oy < hi))) {
-    *dst = kSentinel;
-    return;
+
+  const float xs = (float)threadIdx.x + x00;
+  const float* dep = depths + (long long)s * Hp * Wp;
+#pragma unroll
+  for (int r = 0; r < kDispRows; ++r) {
+    const int row = threadIdx.y * kDispRows + r;
+    const Coords c = rect_coords(h, xs, (float)row + y00);
+    float res = kSentinel;
+    // ox < wi  <=>  (int)ox < wi  for ox >= 0 and an integer-valued wi
+    if ((c.z > 0.0f) && (c.ox >= 0.0f) && (c.oy >= 0.0f) && (c.ox < wi) &&
+        (c.oy < hi)) {
+      const int xi = (int)c.ox, yi = (int)c.oy;  // C truncation, both >= 0
+      const float zs = dep[(long long)yi * Wp + xi];
+      const float u = (c.ox - h[17]) / h[15];
+      const float v = (c.oy - h[18]) / h[16];
+      const float z_rect = zs * (h[12] * u + h[13] * v + h[14]);
+      const float disp = h[11] / fmaxf(z_rect, 1e-6f);
+      if (zs > 0.0f && z_rect > 0.0f) res = disp;
+    }
+    tile[row * WpR + threadIdx.x] = res;
   }
-  const int xi = (int)c.ox, yi = (int)c.oy;  // C truncation, both >= 0
-  const float zs = depths[((long long)s * Hp + yi) * Wp + xi];
-  const float u = (c.ox - h[17]) / h[15];
-  const float v = (c.oy - h[18]) / h[16];
-  const float z_rect = zs * (h[12] * u + h[13] * v + h[14]);
-  const float disp = h[11] / fmaxf(z_rect, 1e-6f);
-  *dst = (zs > 0.0f && z_rect > 0.0f) ? disp : kSentinel;
 }
 
 }  // namespace
@@ -232,7 +239,7 @@ extern "C" int acmmp_warp_src_disparities(const float* depths,
                                           int S, int Hp, int Wp, int HpR,
                                           int WpR, int WR, int WC, int gate,
                                           cudaStream_t stream) {
-  dim3 block(128, 8);
+  dim3 block(128, 8 / kDispRows);
   dim3 grid(WpR / 128, HpR / 8, S);
   warp_disp_kernel<<<grid, block, 0, stream>>>(depths, consts, out, Hp, Wp,
                                                HpR, WpR, WR, WC, gate);

@@ -45,7 +45,7 @@ _SIGNATURES = {
     "acmmp_warp_src_disparities": [_P] * 3 + [_I] * 8 + [_P],
     "acmmp_ncc_window": [_P] * 12 + [_I] * 7 + [_F, _P],
     "acmmp_ncc_window_geom": [_P] * 14 + [_I] * 7 + [_F] * 2 + [_P],
-    "acmmp_window_sample": [_P] * 7 + [_I] * 4 + [_F] * 2 + [_P],
+    "acmmp_window_sample": [_P] * 5 + [_I] * 5 + [_F] * 2 + [_P],
 }
 
 _lib = None

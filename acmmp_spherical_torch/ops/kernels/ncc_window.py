@@ -86,9 +86,15 @@ def pack_pair_params(ref_cam: Camera, src_cams: Cameras) -> torch.Tensor:
 def _window_origin(vmin: torch.Tensor, margin: int, tile: int,
                    span: int, win: int) -> torch.Tensor:
     """Floor of the per-tile minimum minus ``margin``, floored to the tile
-    grid and clipped so the window stays inside ``span``."""
-    off = torch.div(torch.floor(vmin).to(torch.int64) - margin, tile,
-                    rounding_mode="floor") * tile
+    grid and clipped so the window stays inside ``span``, in the
+    reference's int32 arithmetic: the floor saturates to int32 as XLA's
+    convert does (clamped in float64: torch's cast of an out-of-range float
+    differs between devices) and the margin is subtracted with int32
+    wraparound, so a minimum at or below -2^31 places the window at the far
+    edge."""
+    v = torch.floor(vmin).to(torch.float64).clamp(-2.0 ** 31, 2.0 ** 31 - 1)
+    v = (v.to(torch.int64) - margin + 2 ** 31) % 2 ** 32 - 2 ** 31
+    off = torch.div(v, tile, rounding_mode="floor") * tile
     return off.clamp(0, max((span - win) // tile * tile, 0))
 
 

@@ -9,9 +9,12 @@ JAX, so they also run on a GPU host without it:
 Tolerances (as chip_smoke.py): warp_transport (``coefficient_transport``,
 every candidate count, map and pass, and on edge fields) bit-exact; rect_ncc
 (both variants, every candidate count and tap pattern) bit-exact;
-warp_src_frames (gate on and off, bench and odd frames) and
-warp_src_disparities bit-exact; ncc_window (both variants, every field count
-and tap pattern) and window_sample bit-exact; the
+warp_src_frames and warp_src_disparities (gate on and off, bench and odd
+frames; source depths with zeros, negatives and a NaN) bit-exact;
+ncc_window (both variants, every field count and tap pattern) bit-exact;
+window_sample bit-exact on values and ok (window origins at and beyond the
+int32 range, non-finite samples, frames smaller than the window, the
+golden problem's centre-tap projections), one launch per call; the
 golden photometric and geometric passes on the rectified path, and the
 photometric ones on the windowed and exact paths, within drift_gate's 2e-2
 of their fixtures.
@@ -42,6 +45,8 @@ from acmmp_spherical_torch.ops.sampling import (  # noqa: E402
     checkerboard_pack, grid_coords,
 )
 from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch  # noqa: E402
+
+from torch_port_util import WINDOW_EDGE_CASES, window_edge_case  # noqa: E402
 
 FIXTURES = pathlib.Path(__file__).parent / "fixtures"
 
@@ -316,6 +321,112 @@ def test_warp_src_frames_match_plain(cuda, frame, gate):
     valid = float((fk > SENTINEL_THRESH).float().mean())
     assert 0.05 < valid < 1.0
     assert _lib.LAUNCHES["warp_src_frames"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gate", ["gate", "no_gate"])
+@pytest.mark.parametrize("frame", ["bench", "odd"])
+def test_warp_src_disparities_match_plain(cuda, frame, gate):
+    """Kernel 5 bit for bit, with the per-tile gate on and off, on the
+    1024x768x8src bench frames and the 95x64 odd frames, from ground-truth
+    source depths holding a band of zeros, a band of negatives and a NaN."""
+    from acmmp_spherical_torch.bench import BENCH_SCENE
+
+    scene = BENCH_SCENE if frame == "bench" else dict(GOLDEN_SCENE, width=95)
+    inputs, params, depths = make_problem(**scene, device=cuda)[:3]
+    rect = prepare_inputs(inputs, params).rect
+    H, W = inputs.ref_image.shape
+    dep = torch.as_tensor(depths[1:], device=cuda).clone()
+    dep[:, H // 4:H // 4 + 6] = 0.0
+    dep[:, :, W // 3:W // 3 + 5] = -dep[:, :, W // 3:W // 3 + 5]
+    dep[:, H // 2, W // 2] = float("nan")
+    src = inputs.src_cams
+    args = (dep, rect.pr.H1inv, rect.pr.R_sr, src.K,
+            rect.pr.K[:, 0] * rect.pr.baseline, src.width, src.height,
+            rect_shape(H, W), params.rect_warp_hw if gate == "gate" else None)
+    _lib.reset_launch_counts()
+    sk = WI.warp_src_disparities(*args)
+    sp = WI.warp_src_disparities_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(sk, sp)
+    valid = float((sk > SENTINEL_THRESH).float().mean())
+    assert 0.05 < valid < 1.0
+    assert _lib.LAUNCHES["warp_src_disparities"] == 1
+
+
+def _sampler_case(case):
+    """(src, x, y, src_h, src_w) numpy of a windowed-sampler case: the
+    int32-edge and non-finite cases of ``window_edge_case``, a frame smaller
+    than the 40x384 window ("small_frame", padded by the sampler), and the
+    smooth and wild coordinates of tests/test_pallas_window.py."""
+    if case in WINDOW_EDGE_CASES:
+        return window_edge_case(case)
+    rng = np.random.default_rng(1234)
+    Hs, Ws = (30, 200) if case == "small_frame" else (64, 256)
+    src = rng.random((Hs, Ws)).astype(np.float32)
+    if case == "wild":
+        x = rng.uniform(0, Ws - 2, (16, 128))
+        y = rng.uniform(0, Hs - 2, (16, 128))
+    else:
+        ys, xs = np.mgrid[0:16, 0:256].astype(np.float32)
+        x = xs * (0.8 if case == "small_frame" else 0.9) + 3.7 \
+            + 2 * np.sin(ys / 17)
+        y = ys * (1.9 if case == "small_frame" else 0.8) + 1.2 \
+            + 1.5 * np.cos(xs / 23)
+    return src, x.astype(np.float32), y.astype(np.float32), Hs, Ws
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WINDOW_EDGE_CASES + ("small_frame", "smooth",
+                                                      "wild"))
+def test_window_sample_matches_plain(cuda, case):
+    """Kernel 7, which places each tile's window itself, bit for bit on
+    values and ok against the plain version (origins from
+    ``compute_window_offsets``)."""
+    from acmmp_spherical_torch.ops.kernels import window_sample as WS
+
+    src, x, y, Hs, Ws = _sampler_case(case)
+    src, x, y = (torch.as_tensor(a, device=cuda) for a in (src, x, y))
+    _lib.reset_launch_counts()
+    v, ok = WS.windowed_sample(src, x, y, src_h=Hs, src_w=Ws)
+    vp, okp = WS.windowed_sample_plain(src, x, y, src_h=Hs, src_w=Ws)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, okp) and torch.equal(v, vp)
+    assert bool(ok.any())
+    assert _lib.LAUNCHES["window_sample"] == 1
+
+
+@pytest.mark.gpu
+def test_windowed_sample_is_one_launch(cuda, monkeypatch):
+    """On the card windowed_sample is one kernel launch: the plain-torch
+    origin pre-pass never runs, and the profiler sees no device kernel but
+    the sampler's."""
+    from acmmp_spherical_torch.ops.kernels import window_sample as WS
+
+    src, x, y, Hs, Ws = window_edge_case("x_-2^31")
+    src, x, y = (torch.as_tensor(a, device=cuda) for a in (src, x, y))
+    vp, okp = WS.windowed_sample_plain(src, x, y, src_h=Hs, src_w=Ws)
+
+    def refuse(*_, **__):
+        raise AssertionError("compute_window_offsets ran on the card path")
+
+    monkeypatch.setattr(WS, "compute_window_offsets", refuse)
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(4):
+            v, ok = WS.windowed_sample(src, x, y, src_h=Hs, src_w=Ws)
+        torch.cuda.synchronize()
+    assert torch.equal(ok, okp) and torch.equal(v, vp)
+    assert _lib.LAUNCHES["window_sample"] == 4
+    # the profiler may drop an event at the edge of its window
+    device = {ev.key: ev.count for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA
+              and ev.self_device_time_total > 0}
+    assert device and all("window_sample_kernel" in k for k in device), device
+    assert 3 <= sum(device.values()) <= 4, device
 
 
 @pytest.mark.gpu

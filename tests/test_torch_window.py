@@ -18,7 +18,9 @@ reference's tap context is handed to the port through ``interop``.
   reference itself is off by more than 1e-4 on ~0.3% of the perturbed
   field's pixels (ROADMAP Queue 3);
 * ``windowed_sample_plain`` against the Pallas sampler on the cases of
-  tests/test_pallas_window.py: equal ok masks, values within 1e-5;
+  tests/test_pallas_window.py, and on tile minima at and beyond the int32
+  range and non-finite samples (``torch_port_util.WINDOW_EDGE_CASES``):
+  equal window origins and ok masks, values within 1e-5;
 * ``_fast_cost_vectors`` on a grid that is no tile multiple (95x64, the
   ground-truth field): padded to 128x64 and cropped back, agreeing as the
   kernel does;
@@ -69,7 +71,8 @@ from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch  # noqa: E4
 
 from test_regression_fixture import _stats, check_against_fixture  # noqa: E402
 from torch_port_util import (  # noqa: E402
-    golden_scene, jax_inputs, np_tree, port_inputs, port_params, rect_params,
+    WINDOW_EDGE_CASES, golden_scene, jax_inputs, np_tree, port_inputs,
+    port_params, rect_params, window_edge_case,
 )
 
 FIXTURES = pathlib.Path(__file__).parent / "fixtures"
@@ -213,6 +216,34 @@ def test_windowed_sample_plain_matches_reference(case):
                                          torch.from_numpy(y), Hs, 384)
     np.testing.assert_array_equal(toy.numpy(), np.asarray(oy))
     np.testing.assert_array_equal(tox.numpy(), np.asarray(ox))
+
+
+@pytest.mark.parametrize("case", WINDOW_EDGE_CASES)
+def test_windowed_sample_edge_origins_match_reference(case):
+    """Tile minima at and beyond the int32 range, and non-finite samples:
+    the window origins follow the reference's int32 arithmetic (XLA's
+    saturating convert, then the margin subtracted with wraparound), so a
+    minimum at or below -2^31 puts the window at the far edge.  Origins and
+    ok equal, values within 1e-5 (XLA's CPU backend contracts the lerps
+    into multiply-adds)."""
+    from acmmp_spherical_tpu.ops.pallas.window_sample import (
+        compute_window_offsets, windowed_sample,
+    )
+
+    src, x, y, Hs, Ws = window_edge_case(case)
+    jv, jok = windowed_sample(jnp.asarray(src), jnp.asarray(x),
+                              jnp.asarray(y), src_h=Hs, src_w=Ws,
+                              interpret=True)
+    t = torch.from_numpy
+    tv, tok = WS.windowed_sample_plain(t(src), t(x), t(y), src_h=Hs,
+                                       src_w=Ws)
+    oy, ox = compute_window_offsets(jnp.asarray(x), jnp.asarray(y), Hs, Ws)
+    toy, tox = WS.compute_window_offsets(t(x), t(y), Hs, Ws)
+    np.testing.assert_array_equal(toy.numpy(), np.asarray(oy))
+    np.testing.assert_array_equal(tox.numpy(), np.asarray(ox))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-5)
+    assert bool(tok.any())
 
 
 @pytest.fixture(scope="module")

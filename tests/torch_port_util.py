@@ -108,3 +108,45 @@ def port_inputs(tcams, images, src_depths=None):
         depth_range=tcams[0].depth_range,
         src_depths=None if src_depths is None else torch.from_numpy(
             np.ascontiguousarray(src_depths)))
+
+
+# Sample grids for the windowed sampler's window placement at the edges of
+# the int32 range: "<axis>_<value>" puts one sample of tile (0, 0) at that
+# coordinate; "nonfinite_tile" makes every coordinate of tile (1, 1)
+# non-finite; "nan_inf_mixed" mixes NaN and +-inf into tile (0, 1).
+WINDOW_EDGE_CASES = (
+    "x_-3e9", "x_-1e12", "x_-2^31", "x_-2^31+128", "x_+3e9", "x_+1e30",
+    "x_-1e30", "y_-3e9", "y_-2^31", "nonfinite_tile", "nan_inf_mixed")
+
+
+def window_edge_case(case: str):
+    """(src (96, 640), x, y (16, 256), src_h, src_w), float32: smooth
+    in-image samples over 2x2 tiles of 8x128, edited as ``case`` says.  The
+    source is wider and taller than the 40x384 window, so an origin clipped
+    to the far edge differs from one clipped to 0."""
+    rng = np.random.default_rng(7)
+    Hs, Ws = 96, 640
+    src = rng.random((Hs, Ws)).astype(np.float32)
+    ys, xs = np.mgrid[0:16, 0:256].astype(np.float32)
+    x = (xs * 1.5 + 3.7 + 2 * np.sin(ys / 17)).astype(np.float32)
+    y = (ys * 2.5 + 1.2 + 1.5 * np.cos(xs / 23)).astype(np.float32)
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    if case == "nonfinite_tile":
+        x[8:16, 128:256] = np.where(xs[8:16, 128:256] % 3 == 0, nan,
+                                    np.where(xs[8:16, 128:256] % 3 == 1,
+                                             inf, -inf))
+        y[8:16, 128:256] = np.where(ys[8:16, 128:256] % 2 == 0, -inf, nan)
+    elif case == "nan_inf_mixed":
+        x[0, 130:140] = nan
+        x[2, 150:160] = inf
+        x[5, 200:210] = -inf
+        y[3, 140:150] = nan
+        y[6, 240:250] = -inf
+        y[7, 129] = inf
+    else:
+        axis, value = case.split("_")
+        v = {"-3e9": -3e9, "-1e12": -1e12, "-2^31": -2.0 ** 31,
+             "-2^31+128": -2.0 ** 31 + 128, "+3e9": 3e9, "+1e30": 1e30,
+             "-1e30": -1e30}[value]
+        (x if axis == "x" else y)[3, 17] = np.float32(v)
+    return src, x, y, Hs, Ws
