@@ -2,7 +2,7 @@
 """Time the disparity warp (kernel 5) and the windowed sampler (kernel 7) of
 one tree of the PyTorch/CUDA port at the bench shapes, on one GPU.
 
-    python scripts/time_disp_sampler.py [ROOT] [--disp-rows N ...]
+    python scripts/time_disp_sampler.py [ROOT]
 
 ``ROOT`` (default: this checkout) is the tree whose ``acmmp_spherical_torch``
 is imported, so a parent unpacked beside it can be timed in the same call
@@ -11,23 +11,18 @@ depths (kernel 5, gate on) and the centre-tap projections of its
 ground-truth depth into source view 0 (kernel 7).  For each kernel it
 prints ``ms`` (device time of the kernel per call, torch.profiler),
 ``call_ms`` (CUDA events around the Python entry point), the device kernels
-per call and the bound, as one JSON line with the card's name and power
-limit.  ``--disp-rows`` also times ROOT's kernel 5 built with each given
-number of tile rows per thread (a copy of ``csrc/warp_image.cu`` with
-``kDispRows`` replaced, called through its C entry point).
+per launch and the bound, as one JSON line with the card's name and power
+limit.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import importlib.util
 import json
 import pathlib
-import re
 import subprocess
 import sys
-import tempfile
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
 
@@ -40,35 +35,9 @@ def _chip_smoke():
     return mod
 
 
-def _disp_variant(root: pathlib.Path, rows: int, tmp: pathlib.Path):
-    """ROOT's warp_image.cu with ``kDispRows = rows``, built alone."""
-    from acmmp_spherical_torch.ops.kernels import _lib
-
-    src = (root / "acmmp_spherical_torch/csrc/warp_image.cu").read_text()
-    src, n = re.subn(r"constexpr int kDispRows = \d+;",
-                     f"constexpr int kDispRows = {rows};", src)
-    if n != 1:
-        raise RuntimeError("warp_image.cu has no kDispRows constant")
-    cu = tmp / f"warp_image_rows{rows}.cu"
-    cu.write_text(src)
-    so = tmp / f"libdisp_rows{rows}.so"
-    res = subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", "-o",
-                          str(so), str(cu)], capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for rows={rows}:\n{res.stderr}")
-    regs = re.findall(r"warp_disp_kernel.*?\n.*?Used (\d+) registers",
-                      res.stdout + res.stderr, re.S)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.acmmp_warp_src_disparities
-    fn.argtypes = _lib._SIGNATURES["acmmp_warp_src_disparities"]
-    fn.restype = ctypes.c_int
-    return fn, int(regs[0]) if regs else None
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?", default=str(HERE))
-    ap.add_argument("--disp-rows", type=int, nargs="*", default=[])
     a = ap.parse_args()
     root = pathlib.Path(a.root).resolve()
     sys.path.insert(0, str(root))
@@ -83,9 +52,7 @@ def main() -> int:
     from acmmp_spherical_torch.ops.kernels import warp_image as WI
     from acmmp_spherical_torch.ops.kernels import window_sample as WS
     from acmmp_spherical_torch.ops.propagate import prepare_inputs
-    from acmmp_spherical_torch.ops.rectify import (
-        PAD_X, PAD_Y, SENTINEL_THRESH, rect_shape,
-    )
+    from acmmp_spherical_torch.ops.rectify import SENTINEL_THRESH, rect_shape
 
     if not pathlib.Path(acmmp_spherical_torch.__file__).is_relative_to(root):
         raise RuntimeError(f"imported {acmmp_spherical_torch.__file__}, "
@@ -128,41 +95,6 @@ def main() -> int:
                           H * W * cs.SAMPLE_FLOPS)[0],
         ok_fraction=float(ok.float().mean()))
 
-    if a.disp_rows:
-        S, Hp, Wp = dargs[0].shape
-        hr, wr = rect_shape(H, W)
-        HpR, WpR = hr + 2 * PAD_Y, wr + 2 * PAD_X
-        dep, Hinv, R_sr, K_s, fB, wd, ht = dargs[:7]
-        consts = torch.cat([
-            Hinv.reshape(S, 9), wd.reshape(S, 1), ht.reshape(S, 1),
-            fB.reshape(S, 1), R_sr[:, 2, :], K_s[:, 0, 0, None],
-            K_s[:, 1, 1, None], K_s[:, 0, 2, None], K_s[:, 1, 2, None]],
-            1).to(torch.float32).contiguous()
-        WR, WC = params.rect_warp_hw
-        variants = {}
-        with tempfile.TemporaryDirectory() as tmp:
-            for rows in a.disp_rows:
-                fn, regs = _disp_variant(root, rows, pathlib.Path(tmp))
-                res = torch.empty((S, HpR, WpR), dtype=torch.float32,
-                                  device=dev)
-
-                def launch(gate, fn=fn, res=res):
-                    _lib.check(fn(dep.data_ptr(), consts.data_ptr(),
-                                  res.data_ptr(), S, Hp, Wp, HpR, WpR, WR,
-                                  WC, gate, _lib.stream_ptr(res)),
-                               "warp_src_disparities variant")
-
-                launch(1)
-                torch.cuda.synchronize()
-                if not torch.equal(res, k):
-                    raise AssertionError(f"rows={rows}: not bit-identical")
-                variants[rows] = dict(
-                    registers=regs,
-                    gate_ms=cs.device_ms(lambda: launch(1),
-                                         "warp_disp_kernel", 50)[0],
-                    no_gate_ms=cs.device_ms(lambda: launch(0),
-                                            "warp_disp_kernel", 50)[0])
-        out["disp_rows"] = variants
     print(json.dumps(out), flush=True)
     return 0
 
