@@ -25,11 +25,15 @@ import time
 import numpy as np
 import torch
 
-from acmmp_spherical_torch.config import PatchMatchParams
+from acmmp_spherical_torch.config import PatchMatchParams, PriorConfig
 from acmmp_spherical_torch.core.camera import camera_index, stack_cameras
 from acmmp_spherical_torch.ops import rectify as RT
-from acmmp_spherical_torch.ops.propagate import PatchMatchInputs
+from acmmp_spherical_torch.ops import rng as R
+from acmmp_spherical_torch.ops.propagate import (
+    PatchMatchInputs, prepare_inputs,
+)
 from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch
+from acmmp_spherical_torch.pipeline.prior import build_planar_prior
 from acmmp_spherical_torch.utils.synthetic import (
     CubeRoom, make_ring_of_cameras, render_scene,
 )
@@ -99,6 +103,37 @@ def golden_geom_problem(device):
     inputs = dataclasses.replace(inputs, src_depths=t(src))
     seeds = dict(seed_normal_world=t(seed_n), seed_depth=t(seed_d))
     return inputs, params.with_geom(multi_geometry=False), seeds, depths
+
+
+def golden_prior_pass(inputs: PatchMatchInputs, params, key: int = GOLDEN_KEY):
+    """The golden planar-prior pass (tests/fixtures/golden_prior_pass_stats_*
+    .json), as the pass runner chains it: a photometric pass (``key``), the
+    planar prior built from its depth and cost over the working range, then
+    the prior pass from its state with ``fold_in(key, 1)``.  Returns the
+    prior pass's (depth, normal_world, cost, state)."""
+    inputs = prepare_inputs(inputs, params)
+    depth, _, cost, state = run_patchmatch(inputs, params, key)
+    dmin, dmax = inputs.depth_range.cpu().numpy()
+    prior_normal, prior_w, mask, _ = build_planar_prior(
+        inputs.ref_cam, depth.cpu().numpy(), cost.cpu().numpy(), dmin, dmax,
+        PriorConfig())
+    t = lambda a: torch.as_tensor(a, device=depth.device)
+    prior_inputs = dataclasses.replace(
+        inputs, prior_normal=t(prior_normal), prior_w=t(prior_w),
+        prior_mask=t(mask))
+    return run_patchmatch(prior_inputs, params.with_planar_prior(),
+                          R.fold_in(R.key(key), 1), prev_state=state)
+
+
+def golden_hier_pass(inputs: PatchMatchInputs, params, depths, normals,
+                     key: int = GOLDEN_KEY):
+    """The golden hierarchy pass (tests/fixtures/golden_hier_pass_stats_rect
+    .json): seeded from ``golden_geom_fields``' seed depth and normals, on
+    the photometric costs, with the hierarchy commit guard."""
+    _, seed_d, seed_n = golden_geom_fields(depths, normals)
+    t = lambda a: torch.as_tensor(a, device=inputs.ref_image.device)
+    return run_patchmatch(inputs, params.with_hierarchy(), key,
+                          seed_normal_world=t(seed_n), seed_depth=t(seed_d))
 
 
 def source_depths(inputs: PatchMatchInputs, params, key_base: int = 1000):

@@ -1,4 +1,5 @@
-"""Per-pass hyper-parameters (the port's own copy of ``PatchMatchParams`` of
+"""Hyper-parameters (the port's own copy of ``PatchMatchParams``,
+``PriorConfig``, ``FusionParams`` and ``PipelineConfig`` of
 acmmp_spherical_tpu/config.py).
 
 Every field keeps the reference's name and default, so parameters built on
@@ -101,6 +102,59 @@ class PatchMatchParams:
                                    max_iterations=2,
                                    multi_geometry=multi_geometry)
 
+    def with_hierarchy(self) -> "PatchMatchParams":
+        return dataclasses.replace(self, hierarchy=True)
+
+    def with_planar_prior(self) -> "PatchMatchParams":
+        return dataclasses.replace(self, planar_prior=True)
+
     def with_depth_range(self, dmin: float, dmax: float) -> "PatchMatchParams":
         return dataclasses.replace(self, depth_min=float(dmin),
                                    depth_max=float(dmax))
+
+
+@dataclasses.dataclass(frozen=True)
+class PriorConfig:
+    """Planar-prior construction (host side; reference ACMMP.cpp:904-1011)."""
+
+    cell_size: int = 5               # support-point grid
+    support_cost_threshold: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class FusionParams:
+    """Fusion thresholds of the reference's GPU path (ACMMP.cu:1758-1778)."""
+
+    max_reproj_error: float = 1.0
+    max_rel_depth_diff: float = 0.01
+    max_normal_angle: float = 0.149  # radians
+    min_consistent: int = 3          # including the reference view itself
+    max_src_views: int = 32          # FusionProblem cap (ACMMP.cu:1659)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Coarse-to-fine pipeline settings (reference main.cpp:392-482).
+
+    ``fast_ncc`` / ``rect_ncc``: "auto" turns the windowed / rectified
+    kernel path on when the pipeline runs on a CUDA device (the rectified
+    one per problem, for pinhole problems that pass ``host_rectifiable``),
+    "on", "off".  ``rect_unify`` is the scene-wide rect-kernel settings
+    tuple of ``pass_runner.compute_scene_rect_settings``, set per scale by
+    ``run_pipeline`` (None: each problem derives its own)."""
+
+    patchmatch: PatchMatchParams = PatchMatchParams()
+    prior: PriorConfig = PriorConfig()
+    fusion: FusionParams = FusionParams()
+
+    size_bound: int = 1000           # pyramid coarsest bound (main.cpp:38)
+    geom_iterations: int = 2         # geometric passes per scale (main.cpp:412)
+    depth_min_scale: float = 0.6     # working range padding (ACMMP.cpp:645-646)
+    depth_max_scale: float = 1.2
+    planar_prior: bool = True        # run the prior-assisted second round
+    fast_ncc: str = "auto"
+    rect_ncc: str = "auto"
+    seed: int = 0                    # global RNG seed
+    max_src_views: int = 20          # pad/truncate source views per problem
+    skip_if_complete: bool = False   # resume: skip passes in the manifest
+    rect_unify: "tuple | None" = None

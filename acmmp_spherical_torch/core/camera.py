@@ -44,12 +44,16 @@ class Camera:
 Cameras = Camera
 
 
-def make_camera(R, t, *, model: str = PINHOLE, K=None, sphere_params=None,
-                width: int = 0, height: int = 0, depth_min: float = 0.0,
-                depth_max: float = 1.0, device="cuda") -> Camera:
+def _pinhole(model: str) -> None:
     if model != PINHOLE:
         raise NotImplementedError(
             "SPHERE cameras arrive with the sphere slice (ROADMAP slice 4)")
+
+
+def make_camera(R, t, *, model: str = PINHOLE, K=None, sphere_params=None,
+                width: int = 0, height: int = 0, depth_min: float = 0.0,
+                depth_max: float = 1.0, device="cuda") -> Camera:
+    _pinhole(model)
     if K is None:
         raise ValueError("a pinhole camera needs K")
     f32 = lambda a, shape: torch.as_tensor(
@@ -96,3 +100,16 @@ def camera_center(cam: Camera) -> torch.Tensor:
     R, t = cam.R, cam.t
     return -(R[..., 0, :] * t[..., 0:1] + R[..., 1, :] * t[..., 1:2]
              + R[..., 2, :] * t[..., 2:3])
+
+
+def scale_camera(cam: Camera, scale_x: float, scale_y: float,
+                 new_width: int, new_height: int) -> Camera:
+    """Rescale the intrinsics with the image (reference ACMMP.cpp:630-642):
+    fx, cx *= sx; fy, cy *= sy."""
+    _pinhole(cam.model)
+    s = torch.tensor([[scale_x, 1.0, scale_x], [1.0, scale_y, scale_y],
+                      [1.0, 1.0, 1.0]], dtype=cam.K.dtype, device=cam.K.device)
+    return dataclasses.replace(
+        cam, K=cam.K * s,
+        wh=torch.tensor([new_width, new_height], dtype=cam.wh.dtype,
+                        device=cam.wh.device))

@@ -6,8 +6,9 @@ depth/normal extraction and the black/red median filter (reference
 ACMMP::RunPatchMatch, ACMMP.cu:1506-1556).  The key schedule is the
 reference's exactly: ``split(key)`` into (init, iterations), then
 ``split(fold_in(k_iters, i))`` per iteration, so a pass from the same key
-draws the same numbers (a seeded pass splits off the init key and draws
-nothing from it).
+draws the same numbers (a geometric or hierarchy pass splits off the init
+key and draws nothing from it; a planar-prior pass draws its perturbed
+prior from it).
 """
 
 from __future__ import annotations
@@ -25,13 +26,19 @@ from acmmp_spherical_torch.ops.propagate import (
 
 
 def run_patchmatch(inputs: PatchMatchInputs, params: PatchMatchParams, key,
-                   *, seed_normal_world=None, seed_depth=None):
+                   *, prev_state=None, seed_normal_world=None,
+                   seed_depth=None):
     """Run one complete pass.  ``key`` is an ``ops.rng`` key (or an int
     seed).  A geometric pass (``params.with_geom``, ``inputs.src_depths``)
-    starts from the seed fields: world normals (H, W, 3) and depths (H, W)
-    of the previous pass.  With ``fast_ncc`` and ``exact_first_iteration``
-    an unseeded pass runs its first iteration on the exact path.  Returns
-    (depth (H, W), normal_world (H, W, 3), cost (H, W), state)."""
+    or a hierarchy pass (``params.with_hierarchy()``) starts from the seed
+    fields: world normals (H, W, 3) and depths (H, W) of the previous pass
+    (for a hierarchy pass, upsampled from the coarser scale).  A
+    planar-prior pass (``params.with_planar_prior()``, the prior fields of
+    ``inputs``) starts from ``prev_state``, the state the previous pass
+    returned.  With ``fast_ncc`` and ``exact_first_iteration`` a fresh
+    random pass runs its first iteration on the exact path.  Inputs that
+    already carry their rectified context (``prepare_inputs``) keep it.
+    Returns (depth (H, W), normal_world (H, W, 3), cost (H, W), state)."""
     if isinstance(key, int):
         key = R.key(key)
     inputs = prepare_inputs(inputs, params)
@@ -39,12 +46,14 @@ def run_patchmatch(inputs: PatchMatchInputs, params: PatchMatchParams, key,
     if needs_tap_context(inputs, params):
         ctx = ref_tap_context(inputs.ref_image, inputs.ref_cam, params)
     k_init, k_iters = R.split(key)
-    state = initialize_state(inputs, params, k_init,
+    state = initialize_state(inputs, params, k_init, prev_state=prev_state,
                              seed_normal_world=seed_normal_world,
                              seed_depth=seed_depth, ctx=ctx)
     first_iter = 0
-    if (params.fast_ncc and params.exact_first_iteration
-            and not params.geom_consistency and params.max_iterations > 0):
+    fresh_random = not (params.geom_consistency or params.hierarchy
+                        or params.planar_prior)
+    if (params.fast_ncc and params.exact_first_iteration and fresh_random
+            and params.max_iterations > 0):
         # the first iteration after a random init sees scattered fields:
         # the exact path, then the windowed kernel
         params0 = dataclasses.replace(params, fast_ncc=False)

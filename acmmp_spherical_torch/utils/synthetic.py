@@ -1,5 +1,6 @@
 """Analytic synthetic scenes (counterpart of
-acmmp_spherical_tpu/utils/synthetic.py, pinhole cameras, numpy only).
+acmmp_spherical_tpu/utils/synthetic.py, pinhole cameras, numpy only), and
+their on-disk scene folders.
 
 The interior of a textured cube room: closed-form ray exits give exact
 ground-truth depth and a smooth 3D texture gives exact photo-consistency.
@@ -15,6 +16,9 @@ from typing import Sequence
 import numpy as np
 
 from acmmp_spherical_torch.core.camera import Camera, PINHOLE, make_camera
+from acmmp_spherical_torch.io.scene import (
+    ScenePaths, write_camera_file, write_image, write_pair_file,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,3 +111,26 @@ def render_scene(cams: Sequence[Camera], scene: CubeRoom, width: int,
     (V,H,W,3) world frame)."""
     out = [render_view(cam, scene, width, height) for cam in cams]
     return tuple(np.stack(a) for a in zip(*out))
+
+
+def write_synthetic_scene_to_disk(root, cams: Sequence[Camera], images):
+    """Write a rendered scene in the on-disk layout (images/ as JPEG at
+    quality 98, cams/, and a pair.txt in which every view takes every
+    other), as the JAX package's writer does.  Returns its ScenePaths."""
+    sp = ScenePaths(root)
+    sp.images_dir.mkdir(parents=True, exist_ok=True)
+    sp.cams_dir.mkdir(parents=True, exist_ok=True)
+    n = len(cams)
+    for i, cam in enumerate(cams):
+        write_image(sp.image_file(i),
+                    np.clip(images[i], 0, 255).astype(np.uint8),
+                    jpeg_quality=98)
+        dmin, dmax = _np32(cam.depth_range)
+        write_camera_file(sp.camera_file(i), _np32(cam.R), _np32(cam.t),
+                          K=_np32(cam.K), depth_min=float(dmin),
+                          depth_max=float(dmax),
+                          depth_interval=float((dmax - dmin) / 191),
+                          num_planes=192)
+    write_pair_file(sp.pair_file, [[(j, 100.0) for j in range(n) if j != i]
+                                   for i in range(n)])
+    return sp

@@ -1,9 +1,14 @@
-"""The port never imports JAX, the JAX package or OpenCV: tiny photometric
-passes and geometric passes seeded from them on the rectified, windowed and
-exact paths, an odd-frame pass and the windowed sampler run in a fresh
-interpreter, which also imports the profiling script and then
-must not hold ``jax``, ``jaxlib``, ``acmmp_spherical_tpu`` or ``cv2`` in
-``sys.modules`` (the GPU host needs none of them)."""
+"""The port never imports JAX or the JAX package, and its passes never
+import OpenCV: tiny photometric passes and geometric passes seeded from
+them on the rectified, windowed and exact paths, an odd-frame pass and the
+windowed sampler run in a fresh interpreter, which also imports the
+profiling script and every module of the serial pipeline (io, prior, JBU,
+fusion, pass runner, multiscale, CLI) and then must not hold ``jax``,
+``jaxlib``, ``acmmp_spherical_tpu`` or ``cv2`` in ``sys.modules``; then the
+``reconstruct`` command runs a tiny scene on the CPU (planar prior, two
+geometric passes, fusion; its images are read and written with OpenCV, as
+in the JAX package) and ``jax``, ``jaxlib`` and ``acmmp_spherical_tpu``
+must still be absent."""
 
 import pathlib
 import subprocess
@@ -75,8 +80,27 @@ SCRIPT = textwrap.dedent("""
                             src_h=H, src_w=W)
     assert bool(ok.any())
     import acmmp_spherical_torch.profile_pass  # noqa: F401
-    bad = sorted(m for m in sys.modules if m.split(".")[0] in (
-        "jax", "jaxlib", "acmmp_spherical_tpu", "cv2"))
+    from acmmp_spherical_torch import io, utils  # noqa: F401
+    from acmmp_spherical_torch.ops import fusion, jbu  # noqa: F401
+    from acmmp_spherical_torch.pipeline import (  # noqa: F401
+        cli, multiscale, pass_runner, prior)
+    from acmmp_spherical_torch.utils import log, metrics  # noqa: F401
+    forbidden = lambda names: sorted(
+        m for m in sys.modules if m.split(".")[0] in names)
+    bad = forbidden(("jax", "jaxlib", "acmmp_spherical_tpu", "cv2"))
+    print("FORBIDDEN", bad)
+    if bad:
+        sys.exit(1)
+    import tempfile
+    from acmmp_spherical_torch.utils.synthetic import (
+        write_synthetic_scene_to_disk)
+    with tempfile.TemporaryDirectory() as tmp:
+        sc = make_ring_of_cameras(3, width=48, height=32, focal=42.0,
+                                  device="cpu")
+        write_synthetic_scene_to_disk(
+            tmp, sc, render_scene(sc, CubeRoom(), 48, 32)[0])
+        assert cli.main(["reconstruct", tmp, "--device", "cpu"]) == 0
+    bad = forbidden(("jax", "jaxlib", "acmmp_spherical_tpu"))
     print("FORBIDDEN", bad)
     sys.exit(1 if bad else 0)
 """)
@@ -86,4 +110,4 @@ def test_port_imports_no_jax_or_cv2():
     res = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,
                          text=True, timeout=300, cwd=REPO)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "FORBIDDEN []" in res.stdout
+    assert res.stdout.count("FORBIDDEN []") == 2

@@ -144,13 +144,20 @@ def test_one_iteration_pass_matches_reference(scene):
 
 
 def test_unported_branches_raise(scene):
+    """SPHERE cameras and ``rect_prescreen`` raise; planar-prior and
+    hierarchy passes are ported (tests/test_torch_prior_pass.py)."""
     cams, tcams, images, _, _ = scene
     inputs = _port_inputs(tcams, images)
     base = port_params(rect_params(cams))
-    for change, slice_ in ((dict(hierarchy=True), "slice 3"),
-                           (dict(planar_prior=True), "slice 3")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            TP.prepare_inputs(inputs, dataclasses.replace(base, **change))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TP.prepare_inputs(inputs, dataclasses.replace(base,
+                                                      rect_prescreen=True))
+    sphere = dataclasses.replace(inputs, ref_cam=dataclasses.replace(
+        inputs.ref_cam, model="sphere"))
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        TP.prepare_inputs(sphere, base)
+    for change in (dict(hierarchy=True), dict(planar_prior=True)):
+        TP.prepare_inputs(inputs, dataclasses.replace(base, **change))
 
 
 def test_unrectifiable_problem_runs_off_the_rect_path():
