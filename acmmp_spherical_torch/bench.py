@@ -3,16 +3,20 @@ GPU.
 
     python -m acmmp_spherical_torch.bench
 
-The counterpart of the pinhole sections of the repository's ``bench.py`` on
-the CubeRoom scene at 1024x768 with 8 source views, on the rectified kernel
-path: one full photometric PatchMatch pass (random init, 3 iterations of
-black/red propagation with view selection and refinement, depth extraction,
-median filter), and one geometric-consistency pass (2 iterations) seeded
-from the photometric result, with every source view's own photometric pass
-(keys 1000 + i) as its source depths.  Prints one JSON line with the same
-keys (``metric``, ``value``, ``unit``, ``vs_baseline``, ``geom_value``,
-``compile_s``); the spherical sections are not ported yet and report null.
-Needs a CUDA device; there is no CPU fallback.
+The counterpart of the repository's ``bench.py`` on the CubeRoom scene, on
+the rectified kernel path: at 1024x768 with 8 source views, one full
+photometric PatchMatch pass (random init, 3 iterations of black/red
+propagation with view selection and refinement, depth extraction, median
+filter), and one geometric-consistency pass (2 iterations) seeded from the
+photometric result, with every source view's own photometric pass (keys
+1000 + i) as its source depths; then the same two passes on the
+equirectangular ring at 1024x512 with 6 source views through the
+pole-rotated path (source depths from keys 2000 + i).  Prints one JSON line
+with the same keys (``metric``, ``value``, ``unit``, ``vs_baseline``,
+``geom_value``, ``sphere_value``, ``sphere_geom_value``, ``compile_s``).
+The sphere's depth error is reported over the latitude band that
+``LAT_CAP_DEG`` leaves and over the pole band separately.  Needs a CUDA
+device; there is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -26,9 +30,12 @@ import numpy as np
 import torch
 
 from acmmp_spherical_torch.config import PatchMatchParams, PriorConfig
-from acmmp_spherical_torch.core.camera import camera_index, stack_cameras
+from acmmp_spherical_torch.core.camera import (
+    SPHERE, camera_index, stack_cameras,
+)
 from acmmp_spherical_torch.ops import rectify as RT
 from acmmp_spherical_torch.ops import rng as R
+from acmmp_spherical_torch.ops import sphere_rect as SR
 from acmmp_spherical_torch.ops.propagate import (
     PatchMatchInputs, prepare_inputs,
 )
@@ -44,6 +51,8 @@ BASELINE_PASSES_PER_S = 1.6  # analytic GTX 1080 Ti anchor (BASELINE.md)
 BENCH_SCENE = dict(width=1024, height=768, n_src=8, focal=921.6, radius=0.25)
 GOLDEN_SCENE = dict(width=96, height=64, n_src=3, focal=80.0, radius=0.35)
 GOLDEN_KEY = 2333
+SPHERE_BENCH_SCENE = dict(width=1024, height=512, n_src=6)
+SPHERE_GOLDEN_SCENE = dict(width=128, height=64, n_src=3)
 
 
 def make_problem(width: int, height: int, n_src: int, device, *,
@@ -76,6 +85,46 @@ def make_problem(width: int, height: int, n_src: int, device, *,
         src_valid=torch.ones(n_src, dtype=torch.bool, device=device),
         depth_range=cams[0].depth_range)
     return inputs, params, depths, normals
+
+
+def make_sphere_problem(width: int, height: int, n_src: int, device):
+    """An equirect CubeRoom ring problem on the pole-rotated rectified path
+    (reference bench.py settings: the init window and the live-tile budget
+    from the host mirrors; both bf16 packs off).  Returns (inputs, params,
+    ground-truth radial depths (V, H, W) and world normals (V, H, W, 3),
+    numpy)."""
+    cams = make_ring_of_cameras(1 + n_src, model=SPHERE, width=width,
+                                height=height, device=device)
+    images, depths, normals = render_scene(cams, CubeRoom(), width, height)
+    src = stack_cameras(cams[1:])
+    if not SR.sphere_rectifiable(cams[0], src):
+        raise RuntimeError("the sphere scene must pass sphere_rectifiable")
+    iwin = SR.sphere_init_window(cams[0], src)
+    params = dataclasses.replace(
+        PatchMatchParams().with_depth_range(*cams[0].depth_range.tolist()),
+        rect_ncc=True, rect_init=iwin > 0, rect_init_win=iwin or 384,
+        sphere_live_n=SR.sphere_live_tile_count(cams[0]),
+        rect_tap_pack=False, rect_backmap_pack=False)
+    imgs = torch.as_tensor(images, device=device)
+    inputs = PatchMatchInputs(
+        ref_image=imgs[0], src_images=imgs[1:], ref_cam=cams[0], src_cams=src,
+        src_valid=torch.ones(n_src, dtype=torch.bool, device=device),
+        depth_range=cams[0].depth_range)
+    return inputs, params, depths, normals
+
+
+def sphere_band_errors(depth: np.ndarray, gt: np.ndarray, cam) -> dict:
+    """Median relative depth error of an equirect depth map over the
+    latitude band that ``LAT_CAP_DEG`` leaves (|lat| <= the cap) and over
+    the pole band beyond it, from the camera's own latitude of each row."""
+    H = depth.shape[0]
+    cy = float(cam.params[2])
+    lat = -(np.arange(H) - cy) / H * 180.0
+    band = np.abs(lat) <= SR.LAT_CAP_DEG
+    rel = np.abs(depth - gt) / gt
+    return {"band": float(np.median(rel[band])),
+            "pole": float(np.median(rel[~band])),
+            "band_rows": int(band.sum())}
 
 
 def golden_geom_fields(depths, normals):
@@ -156,6 +205,52 @@ def source_depths(inputs: PatchMatchInputs, params, key_base: int = 1000):
     return torch.stack(depths)
 
 
+def sphere_section(dev, reps: int, compile_s: dict):
+    """The spherical passes of the bench (equirect ring 1024x512x6src,
+    pole-rotated path): the photometric pass (key 0 warm, 1..reps timed)
+    and the geometric pass seeded from its last run (key 50 warm, 51.. timed)
+    with each view's own photometric pass (keys 2000 + i) as its source
+    depths.  Returns the two lists of pass times (s)."""
+    W, H = SPHERE_BENCH_SCENE["width"], SPHERE_BENCH_SCENE["height"]
+    inputs, params, gt, _ = make_sphere_problem(**SPHERE_BENCH_SCENE,
+                                                device=dev)
+    t0 = time.perf_counter()
+    run_patchmatch(inputs, params, 0)
+    torch.cuda.synchronize()
+    compile_s["sphere"] = round(time.perf_counter() - t0, 1)
+    times = []
+    for r in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_patchmatch(inputs, params, r + 1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    err = sphere_band_errors(out[0].cpu().numpy(), gt[0], inputs.ref_cam)
+    print(f"[bench] sphere {W}x{H} init_win={params.rect_init_win} "
+          f"live_n={params.sphere_live_n} pass times: "
+          f"{['%.3f' % t for t in times]}; median rel depth err {err}",
+          file=sys.stderr)
+    geom_inputs = dataclasses.replace(inputs, src_depths=source_depths(
+        inputs, params, key_base=2000))
+    geom_params = params.with_geom(multi_geometry=False)
+    seed = dict(seed_normal_world=out[1], seed_depth=out[0])
+    t0 = time.perf_counter()
+    run_patchmatch(geom_inputs, geom_params, 50, **seed)
+    torch.cuda.synchronize()
+    compile_s["sphere_geom"] = round(time.perf_counter() - t0, 1)
+    gtimes = []
+    for r in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gout = run_patchmatch(geom_inputs, geom_params, 51 + r, **seed)
+        torch.cuda.synchronize()
+        gtimes.append(time.perf_counter() - t0)
+    gerr = sphere_band_errors(gout[0].cpu().numpy(), gt[0], inputs.ref_cam)
+    print(f"[bench] sphere geom pass times: {['%.3f' % t for t in gtimes]}; "
+          f"median rel depth err {gerr}", file=sys.stderr)
+    return times, gtimes
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("the port's bench needs a CUDA device")
@@ -212,6 +307,9 @@ def main() -> None:
     grel = np.abs(gout[0].cpu().numpy()[8:-8, 8:-8] - g) / g
     print(f"[bench] geom pass times: {['%.3f' % t for t in gtimes]}; "
           f"median rel depth err {np.median(grel):.4f}", file=sys.stderr)
+
+    # the spherical operating point, as root bench.py:250-357
+    sph = sphere_section(dev, reps, compile_s)
     print(json.dumps({
         "metric": "depth_maps_per_s_per_chip",
         "value": round(value, 4),
@@ -219,9 +317,9 @@ def main() -> None:
         "vs_baseline": round(value / BASELINE_PASSES_PER_S, 4),
         "geom_value": round(1.0 / min(gtimes), 4),
         "geom_unit": f"{W}x{H}x{n_src}src geometric passes/s",
-        "sphere_value": None,
+        "sphere_value": round(1.0 / min(sph[0]), 4),
         "sphere_unit": "1024x512x6src spherical photometric passes/s",
-        "sphere_geom_value": None,
+        "sphere_geom_value": round(1.0 / min(sph[1]), 4),
         "sphere_geom_unit": "1024x512x6src spherical geometric passes/s",
         "compile_s": compile_s,
     }))

@@ -6,7 +6,7 @@ Every field keeps the reference's name and default, so parameters built on
 either side convert with ``PatchMatchParams(**dataclasses.asdict(other))``
 (``interop.params``).  Knobs whose code paths are not ported yet are kept as
 fields; the pass raises ``NotImplementedError`` on them
-(``ops/propagate._check_slice``).  The bf16 packs (``rect_tap_pack``,
+(``ops/propagate._check_params``).  The bf16 packs (``rect_tap_pack``,
 ``rect_backmap_pack``) are TPU gather levers the port does not implement: it
 samples taps and maps costs back in f32 whatever they say.
 """
@@ -137,9 +137,10 @@ class PipelineConfig:
     """Coarse-to-fine pipeline settings (reference main.cpp:392-482).
 
     ``fast_ncc`` / ``rect_ncc``: "auto" turns the windowed / rectified
-    kernel path on when the pipeline runs on a CUDA device (the rectified
-    one per problem, for pinhole problems that pass ``host_rectifiable``),
-    "on", "off".  ``rect_unify`` is the scene-wide rect-kernel settings
+    kernel path on when the pipeline runs on a CUDA device (the windowed
+    one for pinhole problems; the rectified one per problem, for pinhole
+    problems that pass ``host_rectifiable`` and SPHERE ones that pass
+    ``sphere_rectifiable``), "on", "off".  ``rect_unify`` is the scene-wide rect-kernel settings
     tuple of ``pass_runner.compute_scene_rect_settings``, set per scale by
     ``run_pipeline`` (None: each problem derives its own)."""
 

@@ -2,8 +2,9 @@
 
 A :class:`Camera` holds float32 tensors; a batch of cameras is the same
 dataclass with a leading view axis on every tensor.  Conventions are the
-reference's: ``X_cam = R @ X + t``, pinhole depth is z.  Only the PINHOLE
-model is ported so far; SPHERE comes with the sphere slice (ROADMAP slice 4).
+reference's: ``X_cam = R @ X + t``.  Pinhole depth is z; SPHERE
+(equirectangular, COLMAP custom model id 11) depth is the radial distance
+``||X_cam||``, with the sphere params ``[f, cx, cy]``.
 """
 
 from __future__ import annotations
@@ -44,24 +45,26 @@ class Camera:
 Cameras = Camera
 
 
-def _pinhole(model: str) -> None:
-    if model != PINHOLE:
-        raise NotImplementedError(
-            "SPHERE cameras arrive with the sphere slice (ROADMAP slice 4)")
-
-
 def make_camera(R, t, *, model: str = PINHOLE, K=None, sphere_params=None,
                 width: int = 0, height: int = 0, depth_min: float = 0.0,
                 depth_max: float = 1.0, device="cuda") -> Camera:
-    _pinhole(model)
-    if K is None:
+    """A camera on ``device``: pinhole with ``K``, or SPHERE with
+    ``sphere_params`` ``[f, cx, cy]`` (its ``K`` is the identity)."""
+    params = np.zeros(4, np.float32)
+    if model == SPHERE:
+        if sphere_params is None or len(sphere_params) < 3:
+            raise ValueError("a SPHERE camera needs sphere_params [f, cx, cy]")
+        params[:3] = np.asarray(sphere_params[:3], np.float32)
+        K = np.eye(3)
+    elif model != PINHOLE:
+        raise ValueError(f"unknown camera model {model!r}")
+    elif K is None:
         raise ValueError("a pinhole camera needs K")
     f32 = lambda a, shape: torch.as_tensor(
         np.asarray(a, np.float32).reshape(shape), device=device)
     return Camera(
         R=f32(R, (3, 3)), t=f32(t, (3,)), K=f32(K, (3, 3)),
-        params=torch.zeros(4, dtype=torch.float32, device=device),
-        wh=f32([width, height], (2,)),
+        params=f32(params, (4,)), wh=f32([width, height], (2,)),
         depth_range=f32([depth_min, depth_max], (2,)),
         model=model)
 
@@ -105,11 +108,17 @@ def camera_center(cam: Camera) -> torch.Tensor:
 def scale_camera(cam: Camera, scale_x: float, scale_y: float,
                  new_width: int, new_height: int) -> Camera:
     """Rescale the intrinsics with the image (reference ACMMP.cpp:630-642):
-    fx, cx *= sx; fy, cy *= sy."""
-    _pinhole(cam.model)
-    s = torch.tensor([[scale_x, 1.0, scale_x], [1.0, scale_y, scale_y],
-                      [1.0, 1.0, 1.0]], dtype=cam.K.dtype, device=cam.K.device)
+    pinhole fx, cx *= sx; fy, cy *= sy; SPHERE cx *= sx; cy *= sy."""
+    if cam.model == SPHERE:
+        s = torch.tensor([1.0, scale_x, scale_y, 1.0], dtype=cam.params.dtype,
+                         device=cam.params.device)
+        K, params = cam.K, cam.params * s
+    else:
+        s = torch.tensor([[scale_x, 1.0, scale_x], [1.0, scale_y, scale_y],
+                          [1.0, 1.0, 1.0]], dtype=cam.K.dtype,
+                         device=cam.K.device)
+        K, params = cam.K * s, cam.params
     return dataclasses.replace(
-        cam, K=cam.K * s,
+        cam, K=K, params=params,
         wh=torch.tensor([new_width, new_height], dtype=cam.wh.dtype,
                         device=cam.wh.device))

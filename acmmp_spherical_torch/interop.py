@@ -69,6 +69,23 @@ def rect_context(d: dict, device="cuda") -> RectContext:
         rect_sdisp=None if sdisp is None else f(sdisp))
 
 
+def sphere_rect_context(d: dict, device="cuda"):
+    """SphereRectContext from {rect_ref, rect_src, maps: [3 dicts], tile_oy,
+    tile_ox, srow, rays_cam, slat, lat, baseline[, rect_sdisp]}."""
+    from acmmp_spherical_torch.ops.sphere_rect import SphereRectContext
+
+    f = lambda a: _t(a, torch.float32, device)
+    sdisp = d.get("rect_sdisp")
+    return SphereRectContext(
+        rect_ref=f(d["rect_ref"]), rect_src=f(d["rect_src"]),
+        maps=tuple(transport_maps(m, device) for m in d["maps"]),
+        tile_oy=_t(d["tile_oy"], torch.int32, device),
+        tile_ox=_t(d["tile_ox"], torch.int32, device), srow=f(d["srow"]),
+        rays_cam=f(d["rays_cam"]), rect_sdisp=None if sdisp is None
+        else f(sdisp), slat=f(d["slat"]), lat=f(d["lat"]),
+        baseline=f(d["baseline"]))
+
+
 def ref_tap_context(d: dict, device="cuda") -> RefTapContext:
     """RefTapContext from {offsets, ref_taps, weights, center, xs, ys}."""
     return RefTapContext(**{k: _t(d[k], torch.float32, device) for k in (

@@ -11,8 +11,8 @@ on-disk contract::
     <dense>/ACMMP/manifest.json      completed (pass, view) entries
 
 Images are read and written with OpenCV (``cv2``), as the JAX package does;
-without it the image functions raise ImportError naming ``cv2``.  Pinhole
-cameras only: a SPHERE camera file raises NotImplementedError.
+without it the image functions raise ImportError naming ``cv2``.  Camera
+files hold pinhole (``K``) or SPHERE (``f cx cy``) intrinsics.
 """
 
 from __future__ import annotations
@@ -26,7 +26,9 @@ from typing import Sequence
 
 import numpy as np
 
-from acmmp_spherical_torch.core.camera import Camera, PINHOLE, make_camera
+from acmmp_spherical_torch.core.camera import (
+    Camera, PINHOLE, SPHERE, make_camera,
+)
 from acmmp_spherical_torch.utils.log import get_logger
 
 log = get_logger(__name__)
@@ -49,8 +51,9 @@ class Problem:
 
 def read_camera_file(path: str | os.PathLike, device="cuda") -> Camera:
     """Parse a cam.txt (reference ReadCamera, ACMMP.cpp:146-209) into a
-    pinhole camera on ``device``.  Width and height are not in the file;
-    the loader fills them in from the image.  The pinhole depth line comes
+    camera on ``device``.  Width and height are not in the file; the loader
+    fills them in from the image.  A SPHERE file's depth line is
+    ``dmin dint nplanes dmax``.  The pinhole depth line comes
     in two conventions, the converter's ``dmin dint nplanes dmax`` and the
     C++ reader's ``dmin dmax d d``; the converter's is recognised by
     ``dint * (nplanes - 1) == dmax - dmin`` or by a "dmax" below dmin, as
@@ -68,9 +71,11 @@ def read_camera_file(path: str | os.PathLike, device="cuda") -> Camera:
         raise ValueError(f"{path}: expected 'intrinsic', got {tok!r}")
     tok = next(it)
     if tok == "SPHERE":
-        raise NotImplementedError(
-            f"{path}: SPHERE cameras arrive with the sphere slice (ROADMAP "
-            "slice 4, Queue 1 item 1)")
+        f, cx, cy = next_f(), next_f(), next_f()
+        dmin, _dint, _nplanes, dmax = next_f(), next_f(), next_f(), next_f()
+        return make_camera(E[:3, :3], E[:3, 3], model=SPHERE,
+                           sphere_params=[f, cx, cy], depth_min=dmin,
+                           depth_max=dmax, device=device)
     K = np.array([float(tok)] + [next_f() for _ in range(8)]).reshape(3, 3)
     vals = []
     for _ in range(4):
@@ -98,18 +103,25 @@ def read_camera_file(path: str | os.PathLike, device="cuda") -> Camera:
                        depth_min=dmin, depth_max=dmax, device=device)
 
 
-def write_camera_file(path, R, t, *, K, depth_min=0.0, depth_max=1.0,
+def write_camera_file(path, camera_model: str, R, t, *, K=None,
+                      sphere_params=None, depth_min=0.0, depth_max=1.0,
                       depth_interval=0.0, num_planes=192) -> None:
-    """Write a pinhole cam.txt in the converter's format
-    (colmap2mvsnet_acm.py:365-388)."""
+    """Write a cam.txt in the converter's format
+    (colmap2mvsnet_acm.py:365-388): ``K`` for a pinhole camera,
+    ``sphere_params`` ``[f, cx, cy]`` for a SPHERE one; one depth-line
+    format for both."""
     E = np.eye(4)
     E[:3, :3] = np.asarray(R).reshape(3, 3)
     E[:3, 3] = np.asarray(t).reshape(3)
     lines = ["extrinsic"]
     lines += [" ".join(repr(float(v)) for v in E[r]) for r in range(4)]
     lines += ["", "intrinsic"]
-    K = np.asarray(K).reshape(3, 3)
-    lines += [" ".join(repr(float(v)) for v in K[r]) for r in range(3)]
+    if camera_model == SPHERE:
+        f, cx, cy = sphere_params[:3]
+        lines += ["SPHERE", f"{f} {cx} {cy}"]
+    else:
+        K = np.asarray(K).reshape(3, 3)
+        lines += [" ".join(repr(float(v)) for v in K[r]) for r in range(3)]
     lines += ["", f"{depth_min} {depth_interval} {num_planes} {depth_max}"]
     Path(path).write_text("\n".join(lines) + "\n")
 

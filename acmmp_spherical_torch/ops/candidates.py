@@ -2,7 +2,8 @@
 acmmp_spherical_tpu/ops/candidates.py; reference ACMMP.cu:956-1144).
 
 Each pixel takes the min-stored-cost neighbour of 8 regions (4 V-shaped near
-regions, 4 strided far strips).  Pinhole only: the x axis never wraps.
+regions, 4 strided far strips).  ``wrap_x`` (SPHERE frames) wraps the x axis
+around the longitude seam.
 """
 
 from __future__ import annotations
@@ -36,20 +37,25 @@ class Candidates:
     valid: torch.Tensor   # (8, H, W) bool
 
 
-def gather_candidates(normal, w, cost) -> Candidates:
-    """The min-cost neighbour hypothesis of each of the 8 regions."""
+def gather_candidates(normal, w, cost, *, wrap_x: bool = False
+                      ) -> Candidates:
+    """The min-cost neighbour hypothesis of each of the 8 regions; a region
+    is valid where its base neighbour exists (across the seam too with
+    ``wrap_x``)."""
     normal_cf = normal.movedim(-1, 0)
     cand_n, cand_w, cand_valid = [], [], []
     for offsets in REGIONS:
-        shifted = torch.stack([shift2d(cost, dy, dx, fill=float("inf"))
+        shifted = torch.stack([shift2d(cost, dy, dx, fill=float("inf"),
+                                       wrap_x=wrap_x)
                                for dy, dx in offsets])
         best = torch.argmin(shifted, 0)          # first minimum, like jnp
         sel_n = torch.zeros_like(normal_cf)
         sel_w = torch.zeros_like(w)
         for k, (dy, dx) in enumerate(offsets):
             m = best == k
-            sel_n = torch.where(m[None], shift2d(normal_cf, dy, dx), sel_n)
-            sel_w = torch.where(m, shift2d(w, dy, dx), sel_w)
+            sel_n = torch.where(m[None], shift2d(normal_cf, dy, dx,
+                                                 wrap_x=wrap_x), sel_n)
+            sel_w = torch.where(m, shift2d(w, dy, dx, wrap_x=wrap_x), sel_w)
         cand_n.append(sel_n.movedim(0, -1))
         cand_w.append(sel_w)
         cand_valid.append(torch.isfinite(shifted.amin(0)))
@@ -57,7 +63,8 @@ def gather_candidates(normal, w, cost) -> Candidates:
                       valid=torch.stack(cand_valid))
 
 
-def neighbor_selected_views(selected: torch.Tensor) -> torch.Tensor:
+def neighbor_selected_views(selected: torch.Tensor, *,
+                            wrap_x: bool = False) -> torch.Tensor:
     """Shifted selected-view masks of the 4 adjacent pixels, (4, S, H, W)."""
-    return torch.stack([shift2d(selected, dy, dx, fill=False)
+    return torch.stack([shift2d(selected, dy, dx, fill=False, wrap_x=wrap_x)
                         for dy, dx in NEAR_BASE_OFFSETS])

@@ -8,6 +8,10 @@ against every source view by projecting each tap and sampling the source
 bilinearly (reference ComputeBilateralNCC / ComputeMultiViewCostVector,
 ACMMP.cu:398-563).  Plain torch: the reference's version is XLA code, not a
 Pallas kernel.  It runs the exact init of every windowed or exact pass.
+SPHERE views sample with the longitude wrap and the latitude clamp
+(ACMMP.cu:465-474), every tap and centre valid, and weigh taps by the
+angular distance ``(dlon cos(lat), dlat)`` with a radian sigma
+(ACMMP.cu:436-442, 479-486).
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ import torch
 
 from acmmp_spherical_torch.config import PatchMatchParams
 from acmmp_spherical_torch.core import geometry as G
-from acmmp_spherical_torch.core.camera import Camera, Cameras, expand_views
+from acmmp_spherical_torch.core.camera import (
+    Camera, Cameras, SPHERE, expand_views,
+)
 from acmmp_spherical_torch.ops.sampling import grid_coords, sample_bilinear
 
 
@@ -54,14 +60,27 @@ def ref_tap_context(ref_img: torch.Tensor, ref_cam: Camera,
     xs, ys = grid_coords(H, W, dev)
     offsets = tap_offsets(params, dev)
     wd, ht = ref_cam.width, ref_cam.height
-    center, _ = sample_bilinear(ref_img, xs, ys, wd, ht)
-    two_ss = 2.0 * params.sigma_spatial * params.sigma_spatial
+    sphere = ref_cam.model == SPHERE
+    center, _ = sample_bilinear(ref_img, xs, ys, wd, ht, wrap_x=sphere)
+    if sphere:
+        lat_c = -(ys - ref_cam.params[2]) / ht * G.PI
+        scale_x = (2.0 * G.PI / wd) * torch.cos(lat_c)
+        scale_y = G.PI / ht
+        sigma = params.sigma_spatial * (G.PI / ht)
+        two_ss = 2.0 * sigma * sigma
+    else:
+        two_ss = 2.0 * params.sigma_spatial * params.sigma_spatial
     two_sc = 2.0 * params.sigma_color * params.sigma_color
     taps, weights = [], []
     for dx, dy in offsets.tolist():
-        pix, _ = sample_bilinear(ref_img, xs + dx, ys + dy, wd, ht)
-        sdist = torch.sqrt(torch.tensor(dx * dx + dy * dy, dtype=torch.float32,
-                                        device=dev))
+        pix, _ = sample_bilinear(ref_img, xs + dx, ys + dy, wd, ht,
+                                 wrap_x=sphere)
+        if sphere:
+            ax, ay = dx * scale_x, dy * scale_y
+            sdist = torch.sqrt(ax * ax + ay * ay)
+        else:
+            sdist = torch.sqrt(torch.tensor(dx * dx + dy * dy,
+                                            dtype=torch.float32, device=dev))
         cdist = (pix - center).abs()
         weights.append(torch.exp(-sdist / two_ss - cdist / two_sc))
         taps.append(pix)
@@ -75,17 +94,19 @@ def multiview_ncc(src_images: torch.Tensor, src_cams: Cameras,
                   params: PatchMatchParams) -> torch.Tensor:
     """Bilateral-NCC cost (S, H, W) of one plane field (normal (H, W, 3),
     w (H, W) on ``ctx``'s grid) against every source view of the padded
-    stack (S, Hp, Wp).  Taps outside a source image drop out; a centre
-    outside it, a degenerate patch or a flat one cost ``cost_max``
+    stack (S, Hp, Wp).  Taps outside a pinhole source image drop out; a
+    centre outside it, a degenerate patch or a flat one cost ``cost_max``
     (ACMMP.cu:418-433, 497-515)."""
     cost_max = params.cost_max
     xs, ys = ctx.xs, ctx.ys
     cams = expand_views(src_cams, xs.dim())
     wd, ht = cams.width, cams.height
+    wrap = src_cams.model == SPHERE
 
     depth_c = G.depth_from_plane(ref_cam, xs, ys, normal, w)
     px, py, _ = G.project(cams, G.unproject_world(ref_cam, xs, ys, depth_c))
-    valid_c = (px >= 0.0) & (px < wd) & (py >= 0.0) & (py < ht)
+    valid_c = (torch.ones_like(px, dtype=torch.bool) if wrap else
+               (px >= 0.0) & (px < wd) & (py >= 0.0) & (py < ht))
 
     zeros = torch.zeros_like(px)
     s_bw = s_r = s_rr = s_s = s_ss = s_rs = zeros
@@ -94,7 +115,8 @@ def multiview_ncc(src_images: torch.Tensor, src_cams: Cameras,
         d = G.depth_from_plane(ref_cam, xs + dx, ys + dy, normal, w)
         Xt = G.unproject_world(ref_cam, xs + dx, ys + dy, d)
         px, py, _ = G.project(cams, Xt)
-        src_pix, ok = sample_bilinear(src_images, px, py, wd, ht)
+        src_pix, ok = sample_bilinear(src_images, px, py, wd, ht,
+                                      wrap_x=wrap)
         wv = torch.where(ok, ctx.weights[t], 0.0)
         s_bw = s_bw + wv
         s_r = s_r + wv * ref_pix

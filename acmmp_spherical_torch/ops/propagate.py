@@ -1,13 +1,15 @@
 """Checkerboard PatchMatch: initialisation, propagation half-steps and
 refinement (counterpart of acmmp_spherical_tpu/ops/propagate.py).
 
-Ported for pinhole problems: the photometric, hierarchy, planar-prior and
-geometric-consistency passes on each of the three cost paths -- the
-rectified kernel path (``rect_ncc``; ``rect_prescreen`` off), the windowed
-kernel path (``fast_ncc``) and the exact path (neither) -- on even frames
-through the packed half-grid and on odd frames through the full-grid
-fallback with a parity-masked commit.  SPHERE passes raise
-NotImplementedError naming the ROADMAP slice that brings them.
+The photometric, hierarchy, planar-prior and geometric-consistency passes
+on each cost path -- the rectified kernel path (``rect_ncc``;
+``rect_prescreen`` off), the windowed kernel path (``fast_ncc``, pinhole
+only) and the exact path (neither) -- on even frames through the packed
+half-grid and on odd frames through the full-grid fallback with a
+parity-masked commit.  SPHERE problems take the pole-rotated rectified path
+(``ops/sphere_rect``) or the exact path, and wrap x around the longitude
+seam in the candidate, view-selection and filter stencils; a problem that
+mixes SPHERE and PINHOLE cameras stays on the exact path.
 
 The reference's documented intended-semantics fixes carry over (see its
 module docstring): the running hypothesis starts at the centre pixel,
@@ -24,7 +26,9 @@ import torch
 
 from acmmp_spherical_torch.config import PatchMatchParams
 from acmmp_spherical_torch.core import geometry as G
-from acmmp_spherical_torch.core.camera import Camera, Cameras, PINHOLE
+from acmmp_spherical_torch.core.camera import (
+    Camera, Cameras, PINHOLE, SPHERE,
+)
 from acmmp_spherical_torch.core.plane import PlaneState
 from acmmp_spherical_torch.ops import rng as R
 from acmmp_spherical_torch.ops.candidates import (
@@ -40,6 +44,9 @@ from acmmp_spherical_torch.ops.ncc import (
 )
 from acmmp_spherical_torch.ops.sampling import (
     checkerboard_coords, checkerboard_pack, checkerboard_unpack, grid_coords,
+)
+from acmmp_spherical_torch.ops.sphere_rect import (
+    build_sphere_rect_context, sphere_batched_ncc, sphere_rectifiable,
 )
 from acmmp_spherical_torch.ops.view_select import (
     joint_view_selection, view_selection_priors,
@@ -63,25 +70,41 @@ class PatchMatchInputs:
     rect: Optional[object] = None  # ops/rectify.RectContext once prepared
 
 
-def _check_slice(inputs: PatchMatchInputs, params: PatchMatchParams) -> None:
-    if inputs.ref_cam.model != PINHOLE or inputs.src_cams.model != PINHOLE:
-        raise NotImplementedError("SPHERE cameras: ROADMAP slice 4")
+def _check_params(params: PatchMatchParams) -> None:
     if params.rect_prescreen:
         raise NotImplementedError(
             "rect_prescreen is not ported (off by default, measured slower)")
 
 
+def _model(inputs: PatchMatchInputs):
+    """The problem's camera model, or None when it mixes models."""
+    m = inputs.ref_cam.model
+    return m if inputs.src_cams.model == m else None
+
+
 def prepare_inputs(inputs: PatchMatchInputs,
                    params: PatchMatchParams) -> PatchMatchInputs:
-    """Attach the rectified working set (``build_rect_context``) when
-    ``params.rect_ncc``; the windowed and exact paths need nothing more."""
+    """Attach the rectified working set when ``params.rect_ncc``
+    (``build_rect_context`` for pinhole problems,
+    ``build_sphere_rect_context`` for SPHERE ones); the windowed and exact
+    paths, and mixed-model problems, need nothing more."""
     from acmmp_spherical_torch.ops.rectify import (
         build_rect_context, host_rectifiable, rect_shape,
     )
 
-    _check_slice(inputs, params)
-    if not params.rect_ncc or inputs.rect is not None:
+    _check_params(params)
+    if not params.rect_ncc or inputs.rect is not None or _model(inputs) is None:
         return inputs
+    src_depths = inputs.src_depths if params.geom_consistency else None
+    if _model(inputs) == SPHERE:
+        if not sphere_rectifiable(inputs.ref_cam, inputs.src_cams):
+            raise ValueError(
+                "the problem fails sphere_rectifiable: run it with "
+                "rect_ncc=False (the exact path), as the pass runner does")
+        return dataclasses.replace(inputs, rect=build_sphere_rect_context(
+            inputs.ref_image, inputs.src_images, inputs.ref_cam,
+            inputs.src_cams, _depth_range(inputs), src_depths=src_depths,
+            live_n=params.sphere_live_n))
     H, W = inputs.ref_image.shape
     if not host_rectifiable(inputs.ref_cam, inputs.src_cams, rect_shape(H, W)):
         raise ValueError(
@@ -92,7 +115,7 @@ def prepare_inputs(inputs: PatchMatchInputs,
         (inputs.depth_range[0], inputs.depth_range[1]),
         comp_hw=params.rect_comp_hw, live_n=params.rect_live_n,
         warp_hw=params.rect_warp_hw, inv_attrib=params.rect_inv_attrib,
-        src_depths=inputs.src_depths if params.geom_consistency else None)
+        src_depths=src_depths)
     return dataclasses.replace(inputs, rect=rect)
 
 
@@ -101,11 +124,18 @@ def _depth_range(inputs: PatchMatchInputs):
 
 
 def _use_rect(inputs: PatchMatchInputs, params: PatchMatchParams) -> bool:
-    """The rectified kernel path; geometric passes also need the warped
-    source disparities in the context."""
-    if not (params.rect_ncc and inputs.rect is not None):
+    """The rectified kernel path (pinhole or pole-rotated SPHERE);
+    geometric passes also need the warped source disparities in the
+    context."""
+    if not (params.rect_ncc and inputs.rect is not None
+            and _model(inputs) is not None):
         return False
     return not params.geom_consistency or inputs.rect.rect_sdisp is not None
+
+
+def _use_fast(inputs: PatchMatchInputs, params: PatchMatchParams) -> bool:
+    """The windowed kernel path: pinhole problems with ``fast_ncc``."""
+    return params.fast_ncc and _model(inputs) == PINHOLE
 
 
 def _seeded(params: PatchMatchParams) -> bool:
@@ -167,22 +197,22 @@ def _batched_cost_vectors(inputs, ctx, params, normals, ws, *, exact_idx=(),
     windowed one (``fast_ncc``); the exact path evaluates one field after
     the other.  Off the rectified path, the fields in ``exact_idx`` take
     the exact path whatever ``fast_ncc`` says (the reference's refinement
-    asks for it only there)."""
+    asks for it only there, never on the rectified path)."""
     pad = inputs.src_valid[None, :, None, None]
     mask = lambda a, fill: torch.where(pad, a, torch.full_like(a, fill))
     if _use_rect(inputs, params):
-        if not params.geom_consistency:
-            cv = rect_batched_ncc(inputs.rect, normals, ws, params,
-                                  parity=parity)
-            return mask(cv, params.cost_max), None
-        cv, gv = rect_batched_ncc(inputs.rect, normals, ws, params,
-                                  parity=parity, with_geom=True)
-        return mask(cv, params.cost_max), mask(gv, params.geom_max_cost)
+        batched = (sphere_batched_ncc if _model(inputs) == SPHERE
+                   else rect_batched_ncc)
+        out = batched(inputs.rect, normals, ws, params, parity=parity,
+                      with_geom=params.geom_consistency)
+        cv, gv = out if params.geom_consistency else (out, None)
+        return (mask(cv, params.cost_max),
+                None if gv is None else mask(gv, params.geom_max_cost))
     geom_on = params.geom_consistency and inputs.src_depths is not None
     C = ws.shape[0]
     cvs, gvs = [None] * C, [None] * C
-    fast = ([i for i in range(C) if i not in exact_idx] if params.fast_ncc
-            else [])
+    fast = ([i for i in range(C) if i not in exact_idx]
+            if _use_fast(inputs, params) else [])
     if fast:
         sub = (lambda a: a) if len(fast) == C else (lambda a: a[fast])
         out = _fast_cost_vectors(inputs, ctx, sub(normals), sub(ws), params,
@@ -236,7 +266,7 @@ def initialize_state(inputs: PatchMatchInputs, params: PatchMatchParams,
     The cost comes from the rectified kernel (window ``rect_init_win``) when
     it covers the field -- ``rect_init``, or a seeded field -- and from the
     exact path otherwise (``ctx`` is built when not given)."""
-    _check_slice(inputs, params)
+    _check_params(params)
     H, W = inputs.ref_image.shape
     cam = inputs.ref_cam
     dev = inputs.ref_image.device
@@ -309,7 +339,7 @@ def _refinement_candidates(inputs, params, key, xs, ys, normal, depth,
     k_rd, k_rn, k_pn, k_pd = R.split(key, 4)
 
     shape = tuple(depth.shape)
-    rand_fast = params.fast_ncc or _use_rect(inputs, params)
+    rand_fast = _use_fast(inputs, params) or _use_rect(inputs, params)
     if params.planar_prior:
         depth_sigma = (dmax - dmin) / params.prior_depth_sigma_div
         lo_p = torch.maximum(prior_depth - 3.0 * depth_sigma, dmin)
@@ -363,7 +393,7 @@ def _refinement(inputs, ctx, params, key, xs, ys, normal, w, depth, cost,
     # use the kernels; i.i.d. (the windowed path of a prior pass) they take
     # the exact path (the reference's rand_ok, ops/propagate.py:615-621)
     rand_ok = (_use_rect(inputs, params)
-               or (not params.planar_prior and params.fast_ncc))
+               or (not params.planar_prior and _use_fast(inputs, params)))
     cv5, gv5 = _batched_cost_vectors(
         inputs, ctx, params, cand_normals, cand_w,
         exact_idx=() if rand_ok else (0, 2), parity=parity)
@@ -520,9 +550,11 @@ def checkerboard_halfstep(state: PlaneState, inputs: PatchMatchInputs,
     use_rect = _use_rect(inputs, params)
     if ctx is None and not use_rect:
         ctx = ref_tap_context(inputs.ref_image, inputs.ref_cam, params)
-    cands = gather_candidates(state.normal, state.w, state.cost)
+    wrap = inputs.ref_cam.model == SPHERE
+    cands = gather_candidates(state.normal, state.w, state.cost, wrap_x=wrap)
     near_valid = cands.valid[list(NEAR_REGION_INDICES)]
-    priors = view_selection_priors(state.selected, near_valid, params)
+    priors = view_selection_priors(state.selected, near_valid, params,
+                                   wrap_x=wrap)
     prior = ((inputs.prior_normal, inputs.prior_w, inputs.prior_mask)
              if params.planar_prior else (None, None, None))
 

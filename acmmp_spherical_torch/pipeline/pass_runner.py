@@ -5,9 +5,9 @@
 
 Load and rescale the view cluster, move it to the device, run the
 (optionally seeded) pass, run the planar-prior second round when asked, and
-write depth, normal and cost as ``.dmb``.  Pinhole scenes.  Source views
-are padded to a scene-wide even count, as in the reference, so every
-problem of a scale has the same source axis.
+write depth, normal and cost as ``.dmb``.  Pinhole and SPHERE scenes.
+Source views are padded to a scene-wide even count, as in the reference, so
+every problem of a scale has the same source axis.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 
 from acmmp_spherical_torch.config import PatchMatchParams, PipelineConfig
 from acmmp_spherical_torch.core.camera import (
-    Camera, PINHOLE, scale_camera, stack_cameras,
+    Camera, PINHOLE, SPHERE, scale_camera, stack_cameras,
 )
 from acmmp_spherical_torch.io import dmb
 from acmmp_spherical_torch.io.scene import (
@@ -29,6 +29,7 @@ from acmmp_spherical_torch.io.scene import (
 )
 from acmmp_spherical_torch.ops import rectify as RT
 from acmmp_spherical_torch.ops import rng as R
+from acmmp_spherical_torch.ops import sphere_rect as SR
 from acmmp_spherical_torch.ops.jbu import joint_bilateral_upsample
 from acmmp_spherical_torch.ops.propagate import (
     PatchMatchInputs, prepare_inputs,
@@ -45,18 +46,28 @@ log = get_logger(__name__)
 @dataclasses.dataclass(frozen=True)
 class RectUnify:
     """Scene-wide rect-kernel settings of one scale (the reference's
-    ``rect_unify`` tuple, pinhole entries): the max over the rectifiable
-    problems of the compute grid and live-tile budget, the init window (0
-    if any problem needs the exact init), the warp window (None if any
-    problem has none), the AND of the attribution gate, and the problems
-    whose derivation failed (they derive their own settings)."""
+    ``rect_unify`` tuple).  Pinhole entries (None without a rectifiable
+    pinhole problem): the max over the rectifiable problems of the compute
+    grid and live-tile budget, the init window (0 if any problem needs the
+    exact init), the warp window (None if any problem has none) and the AND
+    of the attribution gate.  SPHERE entries (None without a rectifiable
+    SPHERE problem): the init window, reduced the same way, and the max
+    live-tile budget.  ``failed``: the problems whose derivation failed
+    (they derive their own settings)."""
 
-    comp_hw: tuple
-    live_n: int
-    init_win: int
+    comp_hw: Optional[tuple]
+    live_n: Optional[int]
+    init_win: Optional[int]
     warp_hw: Optional[tuple]
     inv_attrib: bool
     failed: frozenset
+    sphere_init_win: Optional[int] = None
+    sphere_live_n: Optional[int] = None
+
+
+def _min_window(a: Optional[int], b: int) -> int:
+    """Reduce two init windows: 0 (the exact init) wins, else the widest."""
+    return b if a is None else (0 if 0 in (a, b) else max(a, b))
 
 
 def camera_to(cam: Camera, device) -> Camera:
@@ -110,7 +121,7 @@ def compute_scene_rect_settings(sp: ScenePaths, problems: Sequence[Problem],
     see, so the port keeps them (a wider window or budget only adds
     coverage, but it changes which taps and tiles are evaluated)."""
     by_id = {p.ref_image_id: p for p in problems}
-    comp = live = iwin = warp = None
+    comp = live = iwin = warp = iwin_s = live_s = None
     warp_none = False
     inv_ok = True
     failed = set()
@@ -120,9 +131,16 @@ def compute_scene_rect_settings(sp: ScenePaths, problems: Sequence[Problem],
                                            problem.cur_image_size)
             src = [_view_geometry(sp, sid, _cur_size(by_id, sid, problem))[0]
                    for sid in _src_ids(problem, cfg)]
-            if not src or ref_cam.model != PINHOLE:
+            if not src:
                 continue
             stacked = stack_cameras(src)
+            if ref_cam.model == SPHERE:
+                if SR.sphere_rectifiable(ref_cam, stacked):
+                    iwin_s = _min_window(iwin_s, SR.sphere_init_window(
+                        ref_cam, stacked, min_scale=cfg.depth_min_scale))
+                    ln = SR.sphere_live_tile_count(ref_cam)
+                    live_s = ln if live_s is None else max(live_s, ln)
+                continue
             rhw = RT.rect_shape(h, w)
             if not RT.host_rectifiable(ref_cam, stacked, rhw):
                 continue
@@ -134,8 +152,7 @@ def compute_scene_rect_settings(sp: ScenePaths, problems: Sequence[Problem],
             comp = chw if comp is None else (max(comp[0], chw[0]),
                                              max(comp[1], chw[1]))
             live = ln if live is None else max(live, ln)
-            iwin = iw if iwin is None else (0 if 0 in (iwin, iw)
-                                            else max(iwin, iw))
+            iwin = _min_window(iwin, iw)
             whw = RT.rect_warp_window(ref_cam, stacked, rhw)
             if whw is None:
                 warp_none = True
@@ -149,11 +166,12 @@ def compute_scene_rect_settings(sp: ScenePaths, problems: Sequence[Problem],
             failed.add(problem.ref_image_id)
             log.exception("rect settings for image %08d failed; it derives "
                           "its own settings", problem.ref_image_id)
-    if comp is None:
+    if comp is None and iwin_s is None:
         return None
     return RectUnify(comp_hw=comp, live_n=live, init_win=iwin,
                      warp_hw=None if warp_none else warp, inv_attrib=inv_ok,
-                     failed=frozenset(failed))
+                     failed=frozenset(failed), sphere_init_win=iwin_s,
+                     sphere_live_n=live_s)
 
 
 def _pad_stack(arrays: Sequence[np.ndarray]) -> np.ndarray:
@@ -177,20 +195,34 @@ class LoadedProblem:
 
 def _path_params(params: PatchMatchParams, cfg: PipelineConfig, problem,
                  ref_cam, src_cams, hw, device) -> PatchMatchParams:
-    """The cost path of one problem: the windowed kernel and, for pinhole
-    problems that pass ``host_rectifiable``, the rectified kernel, each on
-    when its option says "on", or "auto" on a CUDA device."""
+    """The cost path of one problem: the windowed kernel (pinhole problems)
+    and the rectified kernel (pinhole problems that pass
+    ``host_rectifiable``, SPHERE ones that pass ``sphere_rectifiable``),
+    each on when its option says "on", or "auto" on a CUDA device."""
     on = lambda opt: opt == "on" or (opt == "auto" and device.type == "cuda")
-    if on(cfg.fast_ncc):
+    if cfg.fast_ncc == "on" or (on(cfg.fast_ncc) and ref_cam.model == PINHOLE):
         params = dataclasses.replace(params, fast_ncc=True)
     if not (on(cfg.rect_ncc) and src_cams):
         return params
     stacked = stack_cameras(src_cams)
+    unify = cfg.rect_unify
+    unified = unify is not None and problem.ref_image_id not in unify.failed
+    if ref_cam.model == SPHERE:
+        if not SR.sphere_rectifiable(ref_cam, stacked):
+            return params
+        if unified and unify.sphere_init_win is not None:
+            iwin, live_s = unify.sphere_init_win, unify.sphere_live_n
+        else:
+            iwin = SR.sphere_init_window(ref_cam, stacked,
+                                         min_scale=cfg.depth_min_scale)
+            live_s = SR.sphere_live_tile_count(ref_cam)
+        return dataclasses.replace(
+            params, rect_ncc=True, sphere_live_n=live_s, rect_init=iwin > 0,
+            rect_init_win=iwin or 384)
     rhw = RT.rect_shape(*hw)
     if not RT.host_rectifiable(ref_cam, stacked, rhw):
         return params
-    unify = cfg.rect_unify
-    if unify is not None and problem.ref_image_id not in unify.failed:
+    if unified and unify.comp_hw is not None:
         chw = (min(unify.comp_hw[0], rhw[0]), min(unify.comp_hw[1], rhw[1]))
         live_n, iwin = unify.live_n, unify.init_win
         warp_hw, inv = unify.warp_hw, unify.inv_attrib

@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 from acmmp_spherical_torch.config import PatchMatchParams
+from acmmp_spherical_torch.core.camera import SPHERE
 from acmmp_spherical_torch.ops import rng as R
 from acmmp_spherical_torch.ops.filter import checkerboard_median_filter
 from acmmp_spherical_torch.ops.ncc import ref_tap_context
@@ -67,6 +68,7 @@ def run_patchmatch(inputs: PatchMatchInputs, params: PatchMatchParams, key,
         state = checkerboard_halfstep(state, inputs, params, k0, i, 0, ctx=ctx)
         state = checkerboard_halfstep(state, inputs, params, k1, i, 1, ctx=ctx)
     depth, normal_world = extract_depth_and_normal(state, inputs.ref_cam)
-    depth = checkerboard_median_filter(depth, state.cost,
-                                       min_cost=params.filter_min_cost)
+    depth = checkerboard_median_filter(
+        depth, state.cost, min_cost=params.filter_min_cost,
+        wrap_x=inputs.ref_cam.model == SPHERE)
     return depth, normal_world, state.cost, state

@@ -11,7 +11,7 @@ main.cpp:113-197):
 5. pixels whose prior-plane depth falls outside the working range are
    unmasked (main.cpp:168-181).
 
-numpy on the host, like the reference's host code; pinhole cameras.
+numpy on the host, like the reference's host code; both camera models.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 
 from acmmp_spherical_torch.config import PriorConfig
-from acmmp_spherical_torch.core.camera import Camera
+from acmmp_spherical_torch.core.camera import Camera, SPHERE
 from acmmp_spherical_torch.io import native
 
 
@@ -54,17 +54,23 @@ def triangulate(points: np.ndarray) -> np.ndarray:
     return points[tri.simplices]
 
 
-def _pixel_ray(K: np.ndarray, x: np.ndarray, y: np.ndarray) -> np.ndarray:
-    """numpy ``geometry.pixel_ray`` of a pinhole camera."""
+def _pixel_ray(cam: Camera, x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """numpy ``geometry.pixel_ray`` (both camera models)."""
     x = np.asarray(x, np.float32)
     y = np.asarray(y, np.float32)
+    f32 = lambda t: t.detach().cpu().numpy().astype(np.float32)
+    if cam.model == SPHERE:
+        W, H = (float(v) for v in f32(cam.wh))
+        p = f32(cam.params)
+        lon = (x - p[1]) / W * (2.0 * np.pi)
+        lat = -(y - p[2]) / H * np.pi
+        cl = np.cos(lat)
+        return np.stack([cl * np.sin(lon), -np.sin(lat), cl * np.cos(lon)],
+                        axis=-1)
+    K = f32(cam.K)
     u = (x - K[0, 2]) / K[0, 0]
     v = (y - K[1, 2]) / K[1, 1]
     return np.stack([u, v, np.ones_like(u)], axis=-1)
-
-
-def _intrinsics(cam: Camera) -> np.ndarray:
-    return cam.K.detach().cpu().numpy().astype(np.float32)
 
 
 def fit_planes(cam: Camera, depth: np.ndarray, tris: np.ndarray) -> np.ndarray:
@@ -75,7 +81,7 @@ def fit_planes(cam: Camera, depth: np.ndarray, tris: np.ndarray) -> np.ndarray:
     xs = tris[..., 0].astype(np.float32)               # (T, 3)
     ys = tris[..., 1].astype(np.float32)
     ds = depth[tris[..., 1], tris[..., 0]].astype(np.float32)
-    X = _pixel_ray(_intrinsics(cam), xs, ys) * ds[..., None]  # (T, 3, 3)
+    X = _pixel_ray(cam, xs, ys) * ds[..., None]       # (T, 3, 3)
     A = np.concatenate([X, np.ones((*X.shape[:2], 1), np.float32)], axis=-1)
     _, _, vt = np.linalg.svd(A)                        # (T, 4, 4)
     n4 = vt[:, -1]
@@ -118,8 +124,7 @@ def build_planar_prior(cam: Camera, depth: np.ndarray, cost: np.ndarray,
         ys, xs = np.nonzero(mask)
         n = prior_normal[ys, xs]
         w = prior_w[ys, xs]
-        r = _pixel_ray(_intrinsics(cam), xs.astype(np.float32),
-                       ys.astype(np.float32))
+        r = _pixel_ray(cam, xs.astype(np.float32), ys.astype(np.float32))
         denom = np.sum(n * r, axis=-1)
         with np.errstate(divide="ignore", invalid="ignore"):
             d = np.where(np.abs(denom) < 1e-6, -1.0, -w / denom)

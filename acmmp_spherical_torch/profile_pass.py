@@ -1,13 +1,15 @@
 """Where the time of a pass goes on the GPU: stage times and device time.
 
-    python -m acmmp_spherical_torch.profile_pass [--windowed]
+    python -m acmmp_spherical_torch.profile_pass [--windowed | --sphere]
 
 On the bench scene (CubeRoom 1024x768x8src, rectified path) it runs the
 photometric pass and the geometric pass seeded from it (source depths from
 the 8 views' own photometric passes, as the bench); with ``--windowed`` the
 same two passes on the windowed path (``rect_ncc`` off, ``fast_ncc`` on,
-the geometric pass seeded from the windowed photometric one).  For each it
-prints:
+the geometric pass seeded from the windowed photometric one); with
+``--sphere`` the two passes of the sphere bench scene (equirect CubeRoom
+1024x512x6src, pole-rotated path; source depths from keys 2000 + i).  For
+each it prints:
 
 * stage times -- host clock around each stage of ``run_patchmatch``, each
   ended by ``torch.cuda.synchronize()``, mean of 3 passes after a warm one:
@@ -35,7 +37,10 @@ import time
 
 import torch
 
-from acmmp_spherical_torch.bench import BENCH_SCENE, make_problem, source_depths
+from acmmp_spherical_torch.bench import (
+    BENCH_SCENE, SPHERE_BENCH_SCENE, make_problem, make_sphere_problem,
+    source_depths,
+)
 from acmmp_spherical_torch.ops import rng as R
 from acmmp_spherical_torch.ops.filter import checkerboard_median_filter
 from acmmp_spherical_torch.ops.ncc import ref_tap_context
@@ -135,11 +140,16 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_pass needs a CUDA device")
     windowed = "--windowed" in sys.argv[1:]
+    sphere = "--sphere" in sys.argv[1:]
     dev = torch.device("cuda", 0)
-    inputs, params = make_problem(**BENCH_SCENE, device=dev)[:2]
-    geom_inputs = dataclasses.replace(inputs,
-                                      src_depths=source_depths(inputs, params))
-    kind = ""
+    if sphere:
+        inputs, params = make_sphere_problem(**SPHERE_BENCH_SCENE,
+                                             device=dev)[:2]
+    else:
+        inputs, params = make_problem(**BENCH_SCENE, device=dev)[:2]
+    geom_inputs = dataclasses.replace(inputs, src_depths=source_depths(
+        inputs, params, key_base=2000 if sphere else 1000))
+    kind = "sphere " if sphere else ""
     if windowed:
         params = dataclasses.replace(params, rect_ncc=False, fast_ncc=True)
         kind = "windowed "

@@ -71,7 +71,34 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    fused cloud must hold > 2000 points, > 90% of them within 0.08 of the
    cube surface (the gates of tests/test_pipeline_e2e.py).  Times per pass kind and scale, of JBU,
    the prior builds, fusion and io, the wall time and the peak device
-   memory are printed.
+   memory are printed.  The launches are sorted by pass and round by a
+   hook on the run's ``Timings`` that reads the counters as each pass
+   scope and prior build opens and closes;
+10. the sphere passes at the sphere operating point, the equirect CubeRoom
+   ring at 1024x512 with 6 source views (``bench.make_sphere_problem``):
+   ``rect_ncc`` and ``rect_ncc_geom`` held bit for bit against their plain
+   version at their pole-rotated operands (C=1 init, C=9 parity 0, C=5
+   parity 1; the geometric ones around the photometric pass's output),
+   with the times of the coefficient pre-step and the transport gather
+   that feed them; the photometric pass once warm and three times timed
+   (13 ``rect_ncc`` launches each), its device time from torch.profiler
+   over one more pass; the 6 per-view photometric seed passes (keys
+   2000 + i); the geometric pass seeded from the photometric one (keys 50,
+   51-53; 9 ``rect_ncc_geom`` launches each).  Median relative depth error
+   over the latitude band that ``LAT_CAP_DEG`` leaves, and over the pole
+   band: each pass's band error must be < 0.02 (the reference's own sphere
+   geometric pass does not lower the band error when its source depths
+   come from the views' photometric passes, so the geometric pass is not
+   held below the photometric one);
+11. the sphere scene: ``run_pipeline`` with ``PipelineConfig()`` defaults on
+   6 equirect views of the CubeRoom ring at 1024x512 (two scales, 512x256
+   then 1024x512), with the same launch sorting and first-launch checks as
+   phase 9; every view must run each pass once and every prior round must
+   launch kernels; each view's median relative depth error < 0.08, more
+   than 1500 fused points, more than 70% of them within 0.2 of the cube
+   surface (tests/test_multiscale_sphere.py:77-81); then ``convert`` on a
+   small synthetic COLMAP model with a SPHERE camera, whose scene folder
+   must read back.
 Every kernel must have been launched by one of the driven paths.
 
 Prints the card's name and power limit, one JSON line of kernel results,
@@ -125,15 +152,33 @@ WARP_RESID_SLACK = 1.0   # greylevels over twice the ground truth's residual
 # / 4 geometric half-steps; the init is exact
 WIN_PHOT_LAUNCHES = 12
 WIN_GEOM_LAUNCHES = 8
-# phase 9: the pipeline scene and its gates (tests/test_pipeline_e2e.py)
-PIPELINE_SCENE = dict(n_views=8, width=1600, height=1200, focal=1440.0,
-                      radius=0.25)
-PIPELINE_DEPTH_ERR_MAX = 0.02
-PIPELINE_MIN_POINTS = 2000
-SURFACE_TAU = 0.08       # 1% of the 8-unit room
-ON_SURFACE_MIN = 0.9
-PIPELINE_KERNELS = ("rect_ncc", "rect_ncc_geom", "warp_transport",
-                    "warp_src_frames", "warp_src_disparities")
+# phase 9: the pipeline scene and its gates (tests/test_pipeline_e2e.py;
+# tau 0.08 is 1% of the 8-unit room)
+PIPELINE_SCENE = dict(
+    label="pinhole", n_views=8, width=1600, height=1200,
+    cameras=dict(focal=1440.0, radius=0.25), err_border=6,
+    depth_err_max=0.02, min_points=2000, tau=0.08, on_surface_min=0.9,
+    kernels=("rect_ncc", "rect_ncc_geom", "warp_transport", "warp_src_frames",
+             "warp_src_disparities"))
+# phase 10: the sphere operating point (root bench.py:257-261) and the gate
+# of tests/test_sphere_rect.py:119 over the latitude band that LAT_CAP_DEG
+# leaves, for both passes: the geometric pass is not held below the
+# photometric one, since with source depths from the views' own photometric
+# passes the reference's sphere geometric pass raises the band error too
+# (tests/test_torch_sphere_pass.py --geom-seeded; PERF.md, Findings)
+SPHERE_BAND_ERR_MAX = 0.02
+# rect_ncc launches per sphere pass: the C=1 init, then 2 per half-step (the
+# 8 candidates and the current plane at C=9, the 5 refinement candidates at
+# C=5) x 6 photometric / 4 geometric half-steps
+SPHERE_PHOT_LAUNCHES = 13
+SPHERE_GEOM_LAUNCHES = 9
+# phase 11: the sphere scene and its gates (tests/test_multiscale_sphere.py:
+# 77-81, over the whole frame)
+SPHERE_PIPELINE_SCENE = dict(
+    label="sphere", n_views=6, width=1024, height=512,
+    cameras=dict(model="sphere"), err_border=0, depth_err_max=0.08,
+    min_points=1500, tau=0.2, on_surface_min=0.7,
+    kernels=("rect_ncc", "rect_ncc_geom"))
 ODD_SCENE = dict(width=95, height=64, n_src=3, focal=80.0, radius=0.35)
 PHOT_KERNELS = ("rect_ncc", "warp_transport", "warp_src_frames")
 GEOM_KERNELS = ("rect_ncc_geom", "warp_transport", "warp_src_frames",
@@ -470,6 +515,193 @@ def check_geom_kernels(inputs, params, seeds, results):
         results, ("geom_C9_parity0", "geom_C5_parity1"), "ncc")
 
 
+def check_sphere_case(name, ctx, normals, ws, parity, p, with_geom):
+    """Kernel 1 (``with_geom``: kernel 4) on the pole-rotated operands of
+    one batched evaluation against its plain version, bit for bit; returns
+    its numbers, with the times of the coefficient pre-step and of the
+    transport gather (``warp_transport_plain``) that feed it."""
+    import torch
+
+    from acmmp_spherical_torch.ops import sphere_rect as SR
+    from acmmp_spherical_torch.ops.kernels import ncc_rect as NR
+
+    maps = ctx.maps[0 if parity is None else 1 + parity]
+    tables = SR.sphere_coefficient_tables(ctx, normals, ws, parity)
+    D, AB = NR.warp_transport_plain(*tables, maps.fwd_idx, maps.fwd_valid)
+    sd = dict(sdisp=ctx.rect_sdisp) if with_geom else {}
+    rargs = (ctx.srow, ctx.tile_oy, ctx.tile_ox, ctx.rect_ref, ctx.rect_src,
+             D, AB, maps.fwd_valid, p)
+    ck = NR.rect_ncc(*rargs, **sd)
+    cp = NR.rect_ncc_plain(*rargs, **sd)
+    torch.cuda.synchronize()
+    if not _same(ck, cp):
+        raise AssertionError(f"rect_ncc sphere {name}: not bit-identical to "
+                             f"the plain version, max err {_max_err(ck, cp)}")
+    cost = ck[0] if with_geom else ck
+    log(f"rect_ncc{'_geom' if with_geom else ''} sphere {name}: "
+        f"bit-identical, live fraction "
+        f"{float((cost < p.cost_max).float().mean()):.3f}")
+    C, S, K8, _ = D.shape
+    live_tiles = int((maps.fwd_valid.reshape(S, K8 // 8, 1024).amax(-1)
+                      > 0.5).sum())
+    n_taps = len(range(-(p.patch_size // 2), p.patch_size // 2 + 1,
+                       p.radius_increment)) ** 2
+    frames = (ctx.rect_ref, ctx.rect_src) + (
+        (ctx.rect_sdisp,) if with_geom else ())
+    outs = ck if with_geom else (ck,)
+    case = dict(
+        C=C, parity=parity, max_abs_err=0.0,
+        ms=cuda_ms(lambda: NR.rect_ncc(*rargs, **sd), 5),
+        plain_ms=cuda_ms(lambda: NR.rect_ncc_plain(*rargs, **sd), 1),
+        bound=bound(nbytes(D, AB, maps.fwd_valid, ctx.srow, ctx.tile_oy,
+                           ctx.tile_ox, *frames, *outs),
+                    live_tiles * 1024 * C * n_taps * TAP_FLOPS),
+        tables_ms=cuda_ms(lambda: SR.sphere_coefficient_tables(
+            ctx, normals, ws, parity), 5),
+        gather_ms=cuda_ms(lambda: NR.warp_transport_plain(
+            *tables, maps.fwd_idx, maps.fwd_valid), 5),
+        batched_ms=cuda_ms(lambda: SR.sphere_batched_ncc(
+            ctx, normals, ws, p, with_geom=with_geom, parity=parity), 5))
+    log(f"sphere {name}: {case}")
+    return case
+
+
+def run_sphere_phase(dev, results):
+    """Phase 10: the sphere passes at 1024x512x6src; returns their numbers,
+    the photometric and geometric paths under ``phot`` and ``geom``."""
+    import torch
+
+    from acmmp_spherical_torch.bench import (
+        SPHERE_BENCH_SCENE, make_sphere_problem, source_depths,
+        sphere_band_errors,
+    )
+    from acmmp_spherical_torch.ops import rng as R
+    from acmmp_spherical_torch.ops.propagate import prepare_inputs
+    from acmmp_spherical_torch.ops.sampling import grid_coords
+    from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch
+    from acmmp_spherical_torch.profile_pass import trace
+
+    t0 = time.perf_counter()
+    inputs, params, gt, _ = make_sphere_problem(**SPHERE_BENCH_SCENE,
+                                                device=dev)
+    out = dict(scene_s=time.perf_counter() - t0, init_win=params.rect_init_win,
+               live_n=params.sphere_live_n)
+    ctx = prepare_inputs(inputs, params).rect
+    out["build_context_ms"] = cuda_ms(lambda: prepare_inputs(inputs, params),
+                                      2)
+    H, W = inputs.ref_image.shape
+    xs, ys = grid_coords(H, W, dev)
+    planes = [R.random_plane_hypothesis(R.key(300 + i), inputs.ref_cam, xs,
+                                        ys, *inputs.depth_range)
+              for i in range(9)]
+    cases = {}
+    for name, C, parity, p in (
+            ("C1_init", 1, None, dataclasses.replace(
+                params, rect_win_w=params.rect_init_win)),
+            ("C9_parity0", 9, 0, params), ("C5_parity1", 5, 1, params)):
+        n, w = packed(torch.stack([a for a, _ in planes[:C]]),
+                      torch.stack([b for _, b in planes[:C]]), parity)
+        cases[name] = check_sphere_case(name, ctx, n, w, parity, p, False)
+    del ctx
+    res, phot = drive("sphere photometric", ("rect_ncc",),
+                      lambda r: run_patchmatch(inputs, params, r))
+    if phot["launches"]["rect_ncc"] != 4 * SPHERE_PHOT_LAUNCHES:
+        raise AssertionError("the sphere photometric pass did not launch "
+                             f"rect_ncc {SPHERE_PHOT_LAUNCHES} times")
+    d = res[0].cpu().numpy()
+    if not np_finite(d) or d.shape != gt[0].shape:
+        raise AssertionError("sphere depth is not finite or misshapen")
+    phot["errors"] = sphere_band_errors(d, gt[0], inputs.ref_cam)
+    phot["pass_ms"] = 1e3 * sum(phot["pass_s"]) / len(phot["pass_s"])
+    trace(phot, inputs, params, {})
+    log(f"sphere photometric: {phot}")
+    if not phot["errors"]["band"] < SPHERE_BAND_ERR_MAX:
+        raise AssertionError(f"sphere band error {phot['errors']} >= "
+                             f"{SPHERE_BAND_ERR_MAX}")
+
+    t0 = time.perf_counter()
+    geom_inputs = dataclasses.replace(inputs, src_depths=source_depths(
+        inputs, params, key_base=2000))
+    torch.cuda.synchronize()
+    out["seed_passes_s"] = time.perf_counter() - t0
+    geom_params = params.with_geom(multi_geometry=False)
+    seeds = dict(seed_normal_world=res[1], seed_depth=res[0])
+    gctx = prepare_inputs(geom_inputs, geom_params).rect
+    out["build_context_geom_ms"] = cuda_ms(
+        lambda: prepare_inputs(geom_inputs, geom_params), 2)
+    n, w = plane_field(inputs.ref_cam, res[0], res[1])
+    for name, C, parity in (("geom_C9_parity0", 9, 0),
+                            ("geom_C5_parity1", 5, 1)):
+        scale = 1.0 + 0.005 * (torch.arange(C, device=dev) - C // 2)
+        nn, ww = packed(n.expand(C, *n.shape), w * scale[:, None, None],
+                        parity)
+        cases[name] = check_sphere_case(name, gctx, nn, ww, parity,
+                                        geom_params, True)
+    del gctx
+    gres, geom = drive("sphere geometric", ("rect_ncc_geom",),
+                       lambda r: run_patchmatch(geom_inputs, geom_params,
+                                                50 + r, **seeds))
+    if geom["launches"]["rect_ncc_geom"] != 4 * SPHERE_GEOM_LAUNCHES:
+        raise AssertionError("the sphere geometric pass did not launch "
+                             f"rect_ncc_geom {SPHERE_GEOM_LAUNCHES} times")
+    gd = gres[0].cpu().numpy()
+    if not np_finite(gd):
+        raise AssertionError("sphere geometric depth is not finite")
+    geom["errors"] = sphere_band_errors(gd, gt[0], inputs.ref_cam)
+    geom["pass_ms"] = 1e3 * sum(geom["pass_s"]) / len(geom["pass_s"])
+    trace(geom, geom_inputs, geom_params, seeds)
+    log(f"sphere geometric: {geom}")
+    if not geom["errors"]["band"] < SPHERE_BAND_ERR_MAX:
+        raise AssertionError(f"sphere geometric band error {geom['errors']} "
+                             f">= {SPHERE_BAND_ERR_MAX}")
+    for k, names in (("rect_ncc", ("C1_init", "C9_parity0", "C5_parity1")),
+                     ("rect_ncc_geom", ("geom_C9_parity0",
+                                        "geom_C5_parity1"))):
+        results[k]["sphere_cases"] = {
+            nm: dict(ms=cases[nm]["ms"], plain_ms=cases[nm]["plain_ms"],
+                     bound_ms=cases[nm]["bound"][0],
+                     bound_by=cases[nm]["bound"][1]) for nm in names}
+    out.update(cases=cases, phot=phot, geom=geom)
+    return out
+
+
+def check_convert():
+    """Phase 11: ``convert`` (the CLI) on a small synthetic COLMAP model
+    with a SPHERE camera; the scene folder must read back."""
+    import tempfile
+
+    from acmmp_spherical_torch.io.scene import (
+        read_camera_file, read_pair_file,
+    )
+    from acmmp_spherical_torch.pipeline.cli import main as cli_main
+    from acmmp_spherical_torch.utils.synthetic import (
+        CubeRoom, make_ring_of_cameras, render_scene, write_synthetic_colmap,
+    )
+
+    cams = make_ring_of_cameras(5, model="sphere", width=64, height=32,
+                                device="cpu")
+    images, depths, _ = render_scene(cams, CubeRoom(), 64, 32)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        write_synthetic_colmap(root / "colmap", cams, images, depths)
+        if cli_main(["convert", "--dense_folder", str(root / "colmap"),
+                     "--save_folder", str(root / "scene"), "--top_k", "4",
+                     "--min_shared", "5", "--theta0", "0.05"]) != 0:
+            raise AssertionError("convert failed")
+        problems = read_pair_file(root / "scene" / "pair.txt")
+        models = [read_camera_file(root / "scene" / "cams" / f"{i:08d}_cam.txt",
+                                   device="cpu").model for i in range(5)]
+        n_images = len(list((root / "scene" / "images").glob("*.jpg")))
+    log(f"convert: {len(problems)} problems, sources per view "
+        f"{[len(p.src_image_ids) for p in problems]}, models {models}, "
+        f"{n_images} images")
+    if not (len(problems) == 5 and all(len(p.src_image_ids) >= 2
+                                       for p in problems)
+            and models == ["sphere"] * 5 and n_images == 5):
+        raise AssertionError("the converted scene folder does not read back")
+    return dict(problems=len(problems), models=models, images=n_images)
+
+
 def packed_ctx(ctx, parity):
     """The reference tap context on one colour's packed half-grid."""
     from acmmp_spherical_torch.ops.ncc import RefTapContext
@@ -705,102 +937,93 @@ def _max_err(a, b) -> float:
     return float((a - b).abs().nan_to_num(0.0).max()) if a.numel() else 0.0
 
 
-def _pipeline_timings():
-    """A ``Timings`` for ``run_pipeline`` that also sorts the kernel
-    launches by pass scope (``photometric_s1``, ``geom0_s0``, ...) and round
-    (``main``; ``prior`` once the pass's ``prior_build`` scope has closed)
-    from snapshots of the launch counters taken as the scopes open and
-    close, and holds the first launch of each kernel at each set of operand
-    shapes in each (pass, round) against the kernel's plain version.  The
-    checks' own time is kept out of every scope and their peak memory out
-    of ``peak``."""
-    import contextlib
-    import re
+class LaunchScopes:
+    """The ``Timings`` hook of a ``run_pipeline`` run: it reads the launch
+    counters as each pass scope (``photometric_s1``, ``geom0_s0``, ...)
+    opens and closes, and as the pass's ``prior_build`` scope closes, and
+    sorts the launches by pass and round (``main``; ``prior`` after the
+    prior build).  ``check`` holds the first launch of each kernel at each
+    set of operand shapes in each (pass, round) against the kernel's plain
+    version; its own time is left out of every scope and its peak memory
+    out of ``peak``."""
 
-    import torch
+    def __init__(self):
+        from acmmp_spherical_torch.utils.log import Timings
 
-    from acmmp_spherical_torch.ops.kernels import _lib
-    from acmmp_spherical_torch.utils.log import Timings
+        self.timings = Timings(hook=self)
+        self.by_round: dict = {}      # (pass, round) -> {kernel: launches}
+        self.prior_rounds: dict = {}  # pass -> rounds that launched
+        self.checks: dict = {}        # (pass, round, kernel, shapes) -> err
+        self.failures: list = []
+        self.peak = 0
+        self._pass = self._round = None
+        self._snap: dict = {}
 
-    class PipelineTimings(Timings):
-        def __init__(self):
-            super().__init__()
-            self.by_round: dict = {}     # (pass, round) -> {kernel: launches}
-            self.prior_rounds: dict = {}  # pass -> rounds that launched
-            self.checks: dict = {}       # (pass, round, kernel, shapes) -> err
-            self.failures: list = []
-            self.check_s = 0.0
-            self.peak = 0
-            self._pass = self._round = None
-            self._snap: dict = {}
+    def _close_round(self):
+        from acmmp_spherical_torch.ops.kernels import _lib
 
-        def _close_round(self):
-            acc = self.by_round.setdefault((self._pass, self._round),
-                                           dict.fromkeys(_lib.LAUNCHES, 0))
-            for k, v in _lib.LAUNCHES.items():
-                acc[k] += v - self._snap[k]
-            self._snap = dict(_lib.LAUNCHES)
-            return acc
+        acc = self.by_round.setdefault((self._pass, self._round),
+                                       dict.fromkeys(_lib.LAUNCHES, 0))
+        for k, v in _lib.LAUNCHES.items():
+            acc[k] += v - self._snap[k]
+        self._snap = dict(_lib.LAUNCHES)
+        return acc
 
-        @contextlib.contextmanager
-        def scope(self, name: str):
-            is_pass = re.fullmatch(PASS_SCOPE, name) is not None
+    def __call__(self, name: str, entering: bool) -> None:
+        import re
+
+        from acmmp_spherical_torch.ops.kernels import _lib
+
+        is_pass = re.fullmatch(PASS_SCOPE, name) is not None
+        if entering:
             if is_pass:
                 self._pass, self._round = name, "main"
                 self._snap = dict(_lib.LAUNCHES)
-            t0, c0 = time.perf_counter(), self.check_s
-            try:
-                yield
-            finally:
-                dt = time.perf_counter() - t0 - (self.check_s - c0)
-                self.totals[name] = self.totals.get(name, 0.0) + dt
-                self.counts[name] = self.counts.get(name, 0) + 1
-                if name == "prior_build" and self._pass is not None:
-                    self._close_round()
-                    self._round = "prior"
-                elif is_pass:
-                    round_ = self._round
-                    acc = self._close_round()
-                    if round_ == "prior" and (acc["rect_ncc"] or
-                                              acc["ncc_window"]):
-                        self.prior_rounds[name] = \
-                            self.prior_rounds.get(name, 0) + 1
-                    self._pass = self._round = None
+        elif name == "prior_build" and self._pass is not None:
+            self._close_round()
+            self._round = "prior"
+        elif is_pass:
+            round_ = self._round
+            acc = self._close_round()
+            if round_ == "prior" and (acc["rect_ncc"] or acc["ncc_window"]):
+                self.prior_rounds[name] = self.prior_rounds.get(name, 0) + 1
+            self._pass = self._round = None
 
-        def check(self, kernel, shapes, out, plain):
-            key = (self._pass, self._round, kernel, shapes)
-            if key in self.checks:
-                return
-            torch.cuda.synchronize()
-            self.peak = max(self.peak, torch.cuda.max_memory_allocated())
-            t0 = time.perf_counter()
-            ref = plain()
-            torch.cuda.synchronize()
-            same, err = _same(out, ref), _max_err(out, ref)
-            del ref
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            self.check_s += time.perf_counter() - t0
-            self.checks[key] = err
-            if not same:
-                # kept, since run_pipeline retries a failed pass and then
-                # skips the view
-                self.failures.append(
-                    f"{kernel} in {self._pass} ({self._round} round), "
-                    f"operands {shapes}: not bit-identical to the plain "
-                    f"version, max err {err}")
-                raise AssertionError(self.failures[-1])
+    def check(self, kernel, shapes, out, plain):
+        import torch
 
-    return PipelineTimings()
+        key = (self._pass, self._round, kernel, shapes)
+        if key in self.checks:
+            return
+        torch.cuda.synchronize()
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+        t0 = time.perf_counter()
+        ref = plain()
+        torch.cuda.synchronize()
+        same, err = _same(out, ref), _max_err(out, ref)
+        del ref
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.timings.excluded_s += time.perf_counter() - t0
+        self.checks[key] = err
+        if not same:
+            # kept, since run_pipeline retries a failed pass and then
+            # skips the view
+            self.failures.append(
+                f"{kernel} in {self._pass} ({self._round} round), "
+                f"operands {shapes}: not bit-identical to the plain "
+                f"version, max err {err}")
+            raise AssertionError(self.failures[-1])
 
 
 @contextlib.contextmanager
-def checked_kernels(timings):
-    """Route the wrappers of kernels 1-6 through ``timings.check``: the
+def checked_kernels(scopes):
+    """Route the wrappers of kernels 1-6 through ``scopes.check``: the
     wrapper runs (and counts its launch) as always, then its plain version
     runs on the same operands, uncounted."""
     import torch
 
+    from acmmp_spherical_torch.ops import sphere_rect as SR
     from acmmp_spherical_torch.ops.kernels import _lib
     from acmmp_spherical_torch.ops.kernels import ncc_rect as NR
     from acmmp_spherical_torch.ops.kernels import ncc_window as NW
@@ -813,12 +1036,13 @@ def checked_kernels(timings):
             kernel, = (k for k, v in _lib.LAUNCHES.items() if v != before[k])
             shapes = tuple(tuple(a.shape) for a in (*args, *kw.values())
                            if torch.is_tensor(a))
-            timings.check(kernel, shapes, out, lambda: plain(*args, **kw))
+            scopes.check(kernel, shapes, out, lambda: plain(*args, **kw))
             return out
         return call
 
     swaps = [(NR, "coefficient_transport", NR.coefficient_transport_plain),
              (NR, "rect_ncc", NR.rect_ncc_plain),
+             (SR, "rect_ncc", NR.rect_ncc_plain),
              (WI, "warp_src_frames", WI.warp_src_frames_plain),
              (WI, "warp_src_disparities", WI.warp_src_disparities_plain),
              (NW, "ncc_window", NW.ncc_window_plain)]
@@ -832,9 +1056,10 @@ def checked_kernels(timings):
             setattr(mod, name, fn)
 
 
-def run_pipeline_phase(dev):
-    """Phase 9; returns its numbers, with the launch counts of the run
-    under ``launches``."""
+def run_pipeline_phase(dev, sc):
+    """Phase 9 (pinhole) or 11 (SPHERE): ``run_pipeline`` on the CubeRoom
+    ring ``sc`` written to a temporary folder; returns its numbers, with
+    the launch counts of the run under ``launches``."""
     import tempfile
 
     import numpy as np
@@ -853,32 +1078,31 @@ def run_pipeline_phase(dev):
         write_synthetic_scene_to_disk,
     )
 
-    sc = PIPELINE_SCENE
     n_views = sc["n_views"]
     room = CubeRoom()
     t0 = time.perf_counter()
-    cams = make_ring_of_cameras(n_views, width=sc["width"],
-                                height=sc["height"], focal=sc["focal"],
-                                radius=sc["radius"], device="cpu")
+    cams = make_ring_of_cameras(n_views, **sc["cameras"], width=sc["width"],
+                                height=sc["height"], device="cpu")
     images, gt, _ = render_scene(cams, room, sc["width"], sc["height"])
 
     with tempfile.TemporaryDirectory() as tmp:
         root = pathlib.Path(tmp) / "scene"
         write_synthetic_scene_to_disk(root, cams, images)
         scene_s = time.perf_counter() - t0
-        timings = _pipeline_timings()
+        scopes = LaunchScopes()
+        timings = scopes.timings
         torch.cuda.reset_peak_memory_stats()
         _lib.reset_launch_counts()
-        with checked_kernels(timings):
+        with checked_kernels(scopes):
             t0 = time.perf_counter()
             n_points = multiscale.run_pipeline(root, PipelineConfig(),
                                                device=dev, timings=timings)
             torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0 - timings.check_s
-        if timings.failures:
-            raise AssertionError("; ".join(timings.failures))
+            wall_s = time.perf_counter() - t0 - timings.excluded_s
+        if scopes.failures:
+            raise AssertionError("; ".join(scopes.failures))
         launches = dict(_lib.LAUNCHES)
-        peak = max(timings.peak, torch.cuda.max_memory_allocated())
+        peak = max(scopes.peak, torch.cuda.max_memory_allocated())
         sp = ScenePaths(root)
         manifest = json.loads(sp.manifest_file().read_text())
         expected = [f"{tag}_s{s}" for s in (1, 0) for tag in (
@@ -886,15 +1110,15 @@ def run_pipeline_phase(dev):
         entries = sum(len(set(manifest.get(k, [])) & set(range(n_views)))
                       for k in expected)
         errs = [depth_error_stats(read_depth_dmb(sp.depth_file(v, geom=True)),
-                                  gt[v])["median_rel_err"]
-                for v in range(n_views)]
+                                  gt[v], border=sc["err_border"])
+                ["median_rel_err"] for v in range(n_views)]
         pts = read_ply(sp.ply_file())[0]
         on_surface = float(np.mean(cube_surface_distance(pts, room.half)
-                                   < SURFACE_TAU)) if len(pts) else 0.0
+                                   < sc["tau"])) if len(pts) else 0.0
     by_round = {f"{p} {r}": {k: v for k, v in acc.items() if v}
-                for (p, r), acc in timings.by_round.items()}
+                for (p, r), acc in scopes.by_round.items()}
     checks = {}
-    for (p, r, k, _), err in timings.checks.items():
+    for (p, r, k, _), err in scopes.checks.items():
         c = checks.setdefault(f"{p} {r} {k}", dict(shapes=0, max_abs_err=0.0))
         c["shapes"] += 1
         c["max_abs_err"] = max(c["max_abs_err"], err)
@@ -903,10 +1127,10 @@ def run_pipeline_phase(dev):
                manifest_entries=entries, median_rel_depth_err=errs,
                fused_points=n_points, on_surface=on_surface,
                launches=launches, launches_by_round=by_round,
-               prior_rounds=timings.prior_rounds, plain_checks=checks,
-               plain_check_s=timings.check_s)
-    log(f"pipeline {sc['width']}x{sc['height']}x{n_views} views: "
-        f"{json.dumps(out)}")
+               prior_rounds=scopes.prior_rounds, plain_checks=checks,
+               plain_check_s=timings.excluded_s)
+    log(f"pipeline {sc['label']} {sc['width']}x{sc['height']}x{n_views} "
+        f"views: {json.dumps(out)}")
     if entries != len(expected) * n_views:
         raise AssertionError(f"pipeline manifest holds {entries} of "
                              f"{len(expected) * n_views} (pass, view) "
@@ -915,24 +1139,29 @@ def run_pipeline_phase(dev):
     if any(n != n_views for n in ran.values()):
         raise AssertionError(f"pass scopes per pass: {ran}; every view must "
                              "run every pass once, with no retry")
-    prior = {k: timings.prior_rounds.get(k, 0) for k in expected[::3]}
+    prior = {k: scopes.prior_rounds.get(k, 0) for k in expected[::3]}
     if any(n != n_views for n in prior.values()):
         raise AssertionError(f"prior rounds that launched a kernel: {prior}; "
                              f"every view's {' and '.join(prior)} pass must "
                              "run its planar-prior round")
-    for k in PIPELINE_KERNELS:
+    for k in sc["kernels"]:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the "
                                  "pipeline")
-    unchecked = [f"{p} {r} {k}" for (p, r), acc in timings.by_round.items()
+    unchecked = [f"{p} {r} {k}" for (p, r), acc in scopes.by_round.items()
                  for k, v in acc.items() if v and k != "window_sample"
                  and f"{p} {r} {k}" not in checks]
     if unchecked:
         raise AssertionError("kernels launched in the pipeline without a "
                              f"check against their plain version: {unchecked}")
-    if not max(errs) < PIPELINE_DEPTH_ERR_MAX:
+    log(f"pipeline {sc['label']} gates: median rel depth err per view "
+        f"{errs} < {sc['depth_err_max']}; {n_points} fused points > "
+        f"{sc['min_points']}; {on_surface} of them within {sc['tau']} of the "
+        f"surface > {sc['on_surface_min']}")
+    if not max(errs) < sc["depth_err_max"]:
         raise AssertionError(f"pipeline depth errors {errs}")
-    if not (n_points > PIPELINE_MIN_POINTS and on_surface > ON_SURFACE_MIN):
+    if not (n_points > sc["min_points"]
+            and on_surface > sc["on_surface_min"]):
         raise AssertionError(f"fused cloud: {n_points} points, "
                              f"{on_surface} on the surface")
     return out
@@ -1124,16 +1353,26 @@ def main() -> int:
 
     # phase 9: the pipeline at a real size, every kernel of it also held
     # against its plain version at the pipeline's own operands
-    pipe = run_pipeline_phase(dev)
-    for key, c in pipe["plain_checks"].items():
-        e = results[key.rsplit(" ", 1)[1]]
-        e["max_abs_err"] = max(e["max_abs_err"], c["max_abs_err"])
-        e["pipeline_checks"] = e.get("pipeline_checks", 0) + c["shapes"]
+    pipe = run_pipeline_phase(dev, PIPELINE_SCENE)
+
+    # phase 10: the sphere passes at 1024x512x6src, kernels 1 and 4 held
+    # against their plain versions at their pole-rotated operands
+    sphere = run_sphere_phase(dev, results)
+
+    # phase 11: the sphere scene through run_pipeline, and convert
+    spipe = run_pipeline_phase(dev, SPHERE_PIPELINE_SCENE)
+    conv = check_convert()
+    for p_ in (pipe, spipe):
+        for key, c in p_["plain_checks"].items():
+            e = results[key.rsplit(" ", 1)[1]]
+            e["max_abs_err"] = max(e["max_abs_err"], c["max_abs_err"])
+            e["pipeline_checks"] = e.get("pipeline_checks", 0) + c["shapes"]
 
     names = ("rect_ncc", "rect_ncc_geom", "warp_transport", "warp_src_frames",
              "warp_src_disparities", "ncc_window", "ncc_window_geom",
              "window_sample")
-    paths = (phot, geom, win, wgeom, samp, pipe)
+    paths = (phot, geom, win, wgeom, samp, pipe, sphere["phot"],
+             sphere["geom"], spipe)
     kernels = [dict(name=k, launches=sum(p["launches"][k] for p in paths),
                     **results[k]) for k in names]
     for k in kernels:
@@ -1156,6 +1395,7 @@ def main() -> int:
         "golden_odd_worst_over_tol": oworst,
         "golden_prior_worst_over_tol": pworst,
         "golden_hier_worst_over_tol": hworst, "pipeline": pipe,
+        "sphere": sphere, "sphere_pipeline": spipe, "convert": conv,
         "smoke_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

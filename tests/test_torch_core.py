@@ -112,6 +112,10 @@ def test_plane_state_and_sphere_guard():
                                                                dtype=bool),
                    pre_cost=torch.ones(2, 2))
     assert s.selected.shape == (3, 2, 2)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        TC.make_camera(np.eye(3), np.zeros(3), model=TC.SPHERE,
-                       sphere_params=[1, 2, 3])
+    # a SPHERE camera needs its [f, cx, cy]; with them its K is the identity
+    with pytest.raises(ValueError, match="sphere_params"):
+        TC.make_camera(np.eye(3), np.zeros(3), model=TC.SPHERE, device="cpu")
+    cam = TC.make_camera(np.eye(3), np.zeros(3), model=TC.SPHERE,
+                         sphere_params=[1, 2, 3], device="cpu")
+    assert cam.params.tolist() == [1.0, 2.0, 3.0, 0.0]
+    assert torch.equal(cam.K, torch.eye(3))

@@ -17,7 +17,11 @@ int32 range, non-finite samples, frames smaller than the window, the
 golden problem's centre-tap projections), one launch per call; the
 golden photometric and geometric passes on the rectified path, and the
 photometric ones on the windowed and exact paths, within drift_gate's 2e-2
-of their fixtures.
+of their fixtures.  The sphere path: kernels 1 and 4 on the pole-rotated
+operands (C = 1, 5, 9, full grid and both parities) bit-exact;
+``sphere_batched_ncc`` on the card against the CPU plain version within
+the transcendental tolerance of test_torch_sphere_rect.py; the sphere's
+golden rectified pass within 2e-2 of its fixture.
 """
 
 import dataclasses
@@ -63,6 +67,11 @@ def _golden(device):
 
 
 def _check_against(fixture, d, nrm, cost):
+    _check_against_stats(json.loads((FIXTURES / fixture).read_text()), d,
+                         nrm, cost)
+
+
+def _check_against_stats(golden, d, nrm, cost):
     d, nrm, cost = d.cpu().numpy(), nrm.cpu().numpy(), cost.cpu().numpy()
     H, W = d.shape
     stats = {}
@@ -74,7 +83,7 @@ def _check_against(fixture, d, nrm, cost):
     stats["normal_mean_abs"] = float(np.mean(np.abs(nrm)))
     stats["depth_p10"] = float(np.percentile(d, 10))
     stats["depth_p90"] = float(np.percentile(d, 90))
-    for k, v in json.loads((FIXTURES / fixture).read_text()).items():
+    for k, v in golden.items():
         assert abs(stats[k] - v) <= max(2e-2, 2e-2 * abs(v)), (k, stats[k], v)
 
 
@@ -571,3 +580,110 @@ def test_exact_golden_pass_on_card(cuda):
     inputs, params = _golden_off_rect(cuda)
     d, nrm, cost, _ = run_patchmatch(inputs, params, GOLDEN_KEY)
     _check_against("golden_pass_stats.json", d, nrm, cost)
+
+
+def _sphere_fields(inputs, depths, normals, parity, C):
+    """C plane fields around the ground truth (w scaled by 1 + 0.05 k) on
+    the grid of ``parity``'s map."""
+    from acmmp_spherical_torch.core import geometry as G
+
+    dev = inputs.ref_image.device
+    H, W = inputs.ref_image.shape
+    xs, ys = grid_coords(H, W, dev)
+    n = G.normal_world_to_cam(inputs.ref_cam,
+                              torch.as_tensor(normals[0], device=dev))
+    w = G.dist_to_origin(inputs.ref_cam, xs, ys,
+                         torch.as_tensor(depths[0], device=dev), n)
+    ns = torch.stack([n] * C)
+    ws = torch.stack([w * (1.0 + 0.05 * (k - C // 2)) for k in range(C)])
+    if parity is None:
+        return ns.contiguous(), ws.contiguous()
+    return (checkerboard_pack(ns.movedim(-1, 1), parity).movedim(1, -1)
+            .contiguous(), checkerboard_pack(ws, parity).contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("parity", [None, 0, 1], ids=["full", "parity0",
+                                                      "parity1"])
+@pytest.mark.parametrize("with_geom", [False, True], ids=["phot", "geom"])
+@pytest.mark.parametrize("C", [1, 5, 9])
+def test_sphere_rect_ncc_matches_plain(cuda, C, with_geom, parity):
+    """Kernels 1 and 4 on the pole-rotated operands (transposed rotated
+    frames, a sphere srow, zero tile offsets, the sphere's transport maps)
+    against their plain version, bit for bit, one launch each."""
+    from acmmp_spherical_torch.bench import (
+        SPHERE_GOLDEN_SCENE, golden_geom_fields, make_sphere_problem,
+    )
+    from acmmp_spherical_torch.ops import sphere_rect as SR
+
+    inputs, params, depths, normals = make_sphere_problem(
+        **SPHERE_GOLDEN_SCENE, device=cuda)
+    src = torch.as_tensor(golden_geom_fields(depths, normals)[0], device=cuda)
+    ctx = prepare_inputs(dataclasses.replace(inputs, src_depths=src),
+                         params.with_geom(False)).rect
+    assert isinstance(ctx, SR.SphereRectContext)
+    maps = ctx.maps[0 if parity is None else 1 + parity]
+    ns, ws = _sphere_fields(inputs, depths, normals, parity, C)
+    D, AB = NR.warp_transport_plain(
+        *SR.sphere_coefficient_tables(ctx, ns, ws, parity), maps.fwd_idx,
+        maps.fwd_valid)
+    args = (ctx.srow, ctx.tile_oy, ctx.tile_ox, ctx.rect_ref, ctx.rect_src,
+            D, AB, maps.fwd_valid, params)
+    kw = dict(sdisp=ctx.rect_sdisp) if with_geom else {}
+    _lib.reset_launch_counts()
+    k, p = NR.rect_ncc(*args, **kw), NR.rect_ncc_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p) if with_geom else ((k, p),):
+        assert torch.equal(a, b)
+    assert bool(((p[0] if with_geom else p) < params.cost_max).any())
+    assert _lib.LAUNCHES["rect_ncc_geom" if with_geom else "rect_ncc"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_geom", [False, True], ids=["phot", "geom"])
+def test_sphere_batched_ncc_on_card_matches_cpu(cuda, with_geom):
+    """sphere_batched_ncc on the card (its context built there) against the
+    CPU plain version: the transcendentals of the two devices differ by
+    ulps, so the cost_max decisions agree on >= 99.9%, the mean |cost
+    difference| is below 1e-3 and fewer than 1% of the costs (2% of the
+    geometric costs) are more than 1e-2 apart."""
+    from acmmp_spherical_torch.bench import (
+        SPHERE_GOLDEN_SCENE, golden_geom_fields, make_sphere_problem,
+    )
+    from acmmp_spherical_torch.ops import sphere_rect as SR
+
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        inputs, params, depths, normals = make_sphere_problem(
+            **SPHERE_GOLDEN_SCENE, device=dev)
+        src = torch.as_tensor(golden_geom_fields(depths, normals)[0],
+                              device=dev)
+        ctx = prepare_inputs(dataclasses.replace(inputs, src_depths=src),
+                             params.with_geom(False)).rect
+        ns, ws = _sphere_fields(inputs, depths, normals, 0, 9)
+        r = SR.sphere_batched_ncc(ctx, ns, ws, params, with_geom=with_geom,
+                                  parity=0)
+        outs.append([a.cpu() for a in (r if with_geom else (r,))])
+    (card, cpu), cm = outs, params.cost_max
+    assert ((card[0] >= cm) == (cpu[0] >= cm)).float().mean() >= 0.999
+    d = (card[0] - cpu[0]).abs()
+    assert d.mean() < 1e-3 and (d > 1e-2).float().mean() < 0.01
+    if with_geom:
+        assert ((card[1] - cpu[1]).abs() > 1e-2).float().mean() < 0.02
+
+
+@pytest.mark.gpu
+def test_sphere_golden_pass_on_card(cuda):
+    from acmmp_spherical_torch.bench import (
+        SPHERE_GOLDEN_SCENE, make_sphere_problem,
+    )
+
+    inputs, params = make_sphere_problem(**SPHERE_GOLDEN_SCENE,
+                                         device=cuda)[:2]
+    _lib.reset_launch_counts()
+    d, nrm, cost, _ = run_patchmatch(inputs, params, GOLDEN_KEY)
+    assert _lib.LAUNCHES["rect_ncc"] > 0
+    stats = json.loads((FIXTURES / "golden_sphere_pass_stats_rect.json")
+                       .read_text())
+    stats.pop("band_median_rel_err")
+    _check_against_stats(stats, d, nrm, cost)

@@ -9,7 +9,8 @@
   the other's to the same camera and problems; the synthetic scene writer
   writes the same images, cameras and pair list;
 * the resume manifest: written by one, read by the other;
-* ``scale_camera`` equals the reference's; a SPHERE camera file raises.
+* ``scale_camera`` equals the reference's; a SPHERE camera file reads as the
+  reference reads it.
 """
 
 import json
@@ -89,7 +90,8 @@ def test_camera_and_pair_files_both_ways(tmp_path):
     R, _ = np.linalg.qr(rng.normal(size=(3, 3)))
     t = rng.normal(size=3)
     K = np.array([[80.0, 0.0, 48.0], [0.0, 81.0, 32.5], [0.0, 0.0, 1.0]])
-    TS.write_camera_file(tmp_path / "t.txt", R, t, **_cam_fields(R, t, K))
+    TS.write_camera_file(tmp_path / "t.txt", "pinhole", R, t,
+                         **_cam_fields(R, t, K))
     JS.write_camera_file(tmp_path / "j.txt", "pinhole", R, t,
                          **_cam_fields(R, t, K))
     assert (tmp_path / "t.txt").read_text() == (tmp_path / "j.txt").read_text()
@@ -117,12 +119,23 @@ def test_camera_and_pair_files_both_ways(tmp_path):
 
 
 def test_sphere_camera_file_raises(tmp_path):
+    """A SPHERE camera file reads as the JAX package reads it; one cut
+    before its depth line raises in both packages."""
     from acmmp_spherical_tpu.io import scene as JS
 
     JS.write_camera_file(tmp_path / "s.txt", "sphere", np.eye(3), np.zeros(3),
                          sphere_params=[100.0, 50.0, 25.0])
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        TS.read_camera_file(tmp_path / "s.txt", device="cpu")
+    tc = TS.read_camera_file(tmp_path / "s.txt", device="cpu")
+    jc = JS.read_camera_file(tmp_path / "s.txt")
+    assert tc.model == jc.model == "sphere"
+    for k, v in jax_cam_dict(jc).items():
+        np.testing.assert_array_equal(getattr(tc, k).numpy(), v, err_msg=k)
+    cut = tmp_path / "cut.txt"
+    cut.write_text((tmp_path / "s.txt").read_text().rsplit("\n\n", 1)[0])
+    with pytest.raises(StopIteration):
+        JS.read_camera_file(cut)
+    with pytest.raises(StopIteration):
+        TS.read_camera_file(cut, device="cpu")
 
 
 def test_scale_camera_matches_reference():

@@ -1,14 +1,17 @@
 """The port never imports JAX or the JAX package, and its passes never
 import OpenCV: tiny photometric passes and geometric passes seeded from
 them on the rectified, windowed and exact paths, an odd-frame pass and the
-windowed sampler run in a fresh interpreter, which also imports the
-profiling script and every module of the serial pipeline (io, prior, JBU,
-fusion, pass runner, multiscale, CLI) and then must not hold ``jax``,
-``jaxlib``, ``acmmp_spherical_tpu`` or ``cv2`` in ``sys.modules``; then the
-``reconstruct`` command runs a tiny scene on the CPU (planar prior, two
-geometric passes, fusion; its images are read and written with OpenCV, as
-in the JAX package) and ``jax``, ``jaxlib`` and ``acmmp_spherical_tpu``
-must still be absent."""
+windowed sampler, and SPHERE photometric and geometric passes on the
+pole-rotated and exact paths run in a fresh interpreter, which also imports
+the profiling script and every module of the serial pipeline (io, prior,
+JBU, fusion, pass runner, multiscale, COLMAP converter, CLI) and then must
+not hold ``jax``, ``jaxlib``, ``acmmp_spherical_tpu`` or ``cv2`` in
+``sys.modules``; then the ``reconstruct`` command runs a tiny pinhole scene
+and a tiny SPHERE scene on the CPU (planar prior, two geometric passes,
+fusion; its images are read and written with OpenCV, as in the JAX
+package), the ``convert`` command turns a tiny SPHERE COLMAP model into a
+scene folder, and ``jax``, ``jaxlib`` and ``acmmp_spherical_tpu`` must
+still be absent."""
 
 import pathlib
 import subprocess
@@ -79,11 +82,20 @@ SCRIPT = textwrap.dedent("""
     v, ok = windowed_sample(imgs[1], xs * 0.4 + 0.3, ys * 0.9 + 1.1,
                             src_h=H, src_w=W)
     assert bool(ok.any())
+    from acmmp_spherical_torch.bench import make_sphere_problem
+    sin, sp_, _, _ = make_sphere_problem(48, 24, 2, "cpu")
+    for rect in (True, False):
+        p = dataclasses.replace(sp_, max_iterations=1, rect_ncc=rect)
+        d, n = run_patchmatch(sin, p, 0)[:2]
+        g = run_patchmatch(dataclasses.replace(sin, src_depths=d.expand(
+            2, *d.shape).contiguous()), p.with_geom(False), 1,
+            seed_normal_world=n, seed_depth=d)[0]
+        assert bool(torch.isfinite(d).all() and torch.isfinite(g).all())
     import acmmp_spherical_torch.profile_pass  # noqa: F401
     from acmmp_spherical_torch import io, utils  # noqa: F401
     from acmmp_spherical_torch.ops import fusion, jbu  # noqa: F401
     from acmmp_spherical_torch.pipeline import (  # noqa: F401
-        cli, multiscale, pass_runner, prior)
+        cli, colmap, convert, multiscale, pass_runner, prior)
     from acmmp_spherical_torch.utils import log, metrics  # noqa: F401
     forbidden = lambda names: sorted(
         m for m in sys.modules if m.split(".")[0] in names)
@@ -93,13 +105,23 @@ SCRIPT = textwrap.dedent("""
         sys.exit(1)
     import tempfile
     from acmmp_spherical_torch.utils.synthetic import (
-        write_synthetic_scene_to_disk)
+        write_synthetic_colmap, write_synthetic_scene_to_disk)
     with tempfile.TemporaryDirectory() as tmp:
         sc = make_ring_of_cameras(3, width=48, height=32, focal=42.0,
                                   device="cpu")
         write_synthetic_scene_to_disk(
             tmp, sc, render_scene(sc, CubeRoom(), 48, 32)[0])
         assert cli.main(["reconstruct", tmp, "--device", "cpu"]) == 0
+    with tempfile.TemporaryDirectory() as tmp:
+        sc = make_ring_of_cameras(3, model="sphere", width=48, height=24,
+                                  device="cpu")
+        imgs, deps, _ = render_scene(sc, CubeRoom(), 48, 24)
+        write_synthetic_colmap(tmp + "/colmap", sc, imgs, deps)
+        assert cli.main(["convert", "--dense_folder", tmp + "/colmap",
+                         "--save_folder", tmp + "/scene", "--top_k", "2",
+                         "--min_shared", "5", "--theta0", "0.05"]) == 0
+        assert cli.main(["reconstruct", tmp + "/scene", "--device",
+                         "cpu"]) == 0
     bad = forbidden(("jax", "jaxlib", "acmmp_spherical_tpu"))
     print("FORBIDDEN", bad)
     sys.exit(1 if bad else 0)

@@ -144,8 +144,11 @@ def test_one_iteration_pass_matches_reference(scene):
 
 
 def test_unported_branches_raise(scene):
-    """SPHERE cameras and ``rect_prescreen`` raise; planar-prior and
-    hierarchy passes are ported (tests/test_torch_prior_pass.py)."""
+    """``rect_prescreen`` raises; a problem that mixes a SPHERE reference
+    with pinhole sources gets no rectified context (it stays on the exact
+    path, as in the reference; SPHERE problems are ported,
+    tests/test_torch_sphere_*.py); planar-prior and hierarchy passes are
+    ported (tests/test_torch_prior_pass.py)."""
     cams, tcams, images, _, _ = scene
     inputs = _port_inputs(tcams, images)
     base = port_params(rect_params(cams))
@@ -154,8 +157,8 @@ def test_unported_branches_raise(scene):
                                                       rect_prescreen=True))
     sphere = dataclasses.replace(inputs, ref_cam=dataclasses.replace(
         inputs.ref_cam, model="sphere"))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        TP.prepare_inputs(sphere, base)
+    mixed = TP.prepare_inputs(sphere, base)
+    assert mixed.rect is None and not TP._use_rect(mixed, base)
     for change in (dict(hierarchy=True), dict(planar_prior=True)):
         TP.prepare_inputs(inputs, dataclasses.replace(base, **change))
 
