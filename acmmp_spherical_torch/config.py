@@ -142,7 +142,11 @@ class PipelineConfig:
     problems that pass ``host_rectifiable`` and SPHERE ones that pass
     ``sphere_rectifiable``), "on", "off".  ``rect_unify`` is the scene-wide rect-kernel settings
     tuple of ``pass_runner.compute_scene_rect_settings``, set per scale by
-    ``run_pipeline`` (None: each problem derives its own)."""
+    ``run_pipeline`` (None: each problem derives its own).
+    ``batch_problems``: run each pass in chunks of problems over a mesh of
+    device slots (``pipeline/batch_runner``): "on", "off", or "auto" (on
+    when the pipeline runs on CUDA with more than one local device, in a
+    single-process run)."""
 
     patchmatch: PatchMatchParams = PatchMatchParams()
     prior: PriorConfig = PriorConfig()
@@ -159,3 +163,4 @@ class PipelineConfig:
     max_src_views: int = 20          # pad/truncate source views per problem
     skip_if_complete: bool = False   # resume: skip passes in the manifest
     rect_unify: "tuple | None" = None
+    batch_problems: str = "auto"

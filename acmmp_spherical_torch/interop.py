@@ -107,3 +107,16 @@ def patchmatch_inputs(d: dict, device="cuda") -> PatchMatchInputs:
         depth_range=f("depth_range"),
         src_depths=None if d.get("src_depths") is None else f("src_depths"),
         rect=None if rect is None else rect_context(rect, device))
+
+
+def problem_batch(d: dict, device="cuda"):
+    """parallel.ProblemBatch from {images, cams: {...}, src_valid,
+    src_view_global} (the JAX package's ProblemBatch read out as numpy;
+    camera leaves (B, V, ...))."""
+    from acmmp_spherical_torch.parallel.view_parallel import ProblemBatch
+
+    return ProblemBatch(
+        images=_t(d["images"], torch.float32, device),
+        cams=camera(d["cams"], device),
+        src_valid=_t(d["src_valid"], torch.bool, device),
+        src_view_global=_t(d["src_view_global"], torch.int32, device))

@@ -15,12 +15,14 @@ import ctypes
 import functools
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
 
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 _LIB_PATH = _NATIVE_DIR / "libacmmp_native.so"
+_LOCK = threading.Lock()
 
 
 def _build() -> bool:
@@ -34,9 +36,15 @@ def _build() -> bool:
     return True
 
 
-@functools.cache
 def load() -> ctypes.CDLL | None:
-    """The native library (built if necessary), or None if unavailable."""
+    """The native library (built if necessary), or None if unavailable;
+    built and loaded once, whichever thread asks first."""
+    with _LOCK:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL | None:
     if not _LIB_PATH.exists() and not _build():
         return None
     lib = ctypes.CDLL(str(_LIB_PATH))

@@ -17,7 +17,9 @@ files hold pinhole (``K``) or SPHERE (``f cx cy``) intrinsics.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import fcntl
 import functools
 import json
 import os
@@ -247,19 +249,38 @@ def write_image(path, image: np.ndarray, jpeg_quality: int | None = None
         raise IOError(f"cv2.imwrite({path}) failed")
 
 
+@contextlib.contextmanager
+def _locked_manifest(mf: Path, exclusive: bool):
+    """The manifest opened under an ``flock`` (shared to read, exclusive to
+    update), since the ranks of a distributed run mark the same file."""
+    fd = os.open(mf, os.O_RDWR | os.O_CREAT, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX if exclusive else fcntl.LOCK_SH)
+        with os.fdopen(os.dup(fd), "r+") as f:
+            yield f
+    finally:
+        os.close(fd)
+
+
 def mark_pass_complete(paths: ScenePaths, pass_name: str,
                        image_id: int) -> None:
     mf = paths.manifest_file()
-    data = json.loads(mf.read_text()) if mf.exists() else {}
-    data.setdefault(pass_name, [])
-    if image_id not in data[pass_name]:
-        data[pass_name].append(image_id)
     mf.parent.mkdir(parents=True, exist_ok=True)
-    mf.write_text(json.dumps(data))
+    with _locked_manifest(mf, exclusive=True) as f:
+        text = f.read()
+        data = json.loads(text) if text else {}
+        data.setdefault(pass_name, [])
+        if image_id not in data[pass_name]:
+            data[pass_name].append(image_id)
+        f.seek(0)
+        f.truncate()
+        f.write(json.dumps(data))
 
 
 def is_pass_complete(paths: ScenePaths, pass_name: str, image_id: int) -> bool:
     mf = paths.manifest_file()
     if not mf.exists():
         return False
-    return image_id in json.loads(mf.read_text()).get(pass_name, [])
+    with _locked_manifest(mf, exclusive=False) as f:
+        text = f.read()
+    return image_id in (json.loads(text) if text else {}).get(pass_name, [])

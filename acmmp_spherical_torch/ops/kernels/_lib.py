@@ -8,7 +8,10 @@ flags, so a checkout builds everything it needs from its own files.  Every C
 entry point returns ``cudaGetLastError()`` after its launch.
 
 ``LAUNCHES`` counts kernel launches per wrapper (and nothing else): a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels.  Wrappers count through
+``count_launch``, under a lock, since several threads may launch at once
+(``pipeline/batch_runner`` runs one thread per slot); the library is built
+and loaded under the same lock, once.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 
 import torch
 
@@ -49,11 +53,20 @@ _SIGNATURES = {
 }
 
 _lib = None
+_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``LAUNCHES[name]``: called by a wrapper where it has
+    launched its kernel, and nowhere else."""
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -109,16 +122,17 @@ def library() -> ctypes.CDLL:
     """The kernel library, built on first call (``ptxas.log`` beside it holds
     each kernel's registers and spills)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(_build()))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        lib.acmmp_error_string.argtypes = [ctypes.c_int]
-        lib.acmmp_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    with _LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build()))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            lib.acmmp_error_string.argtypes = [ctypes.c_int]
+            lib.acmmp_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
 
 
 def check(err: int, name: str) -> None:

@@ -158,7 +158,7 @@ def coefficient_transport(rect: RectContext, maps, normals, ws):
             rect.srow.data_ptr(), out_d.data_ptr(), out_ab.data_ptr(), C, S,
             M, P, _lib.stream_ptr(out_d))
     _lib.check(err, "warp_transport")
-    _lib.LAUNCHES["warp_transport"] += 1
+    _lib.count_launch("warp_transport")
     return out_d, out_ab
 
 
@@ -318,7 +318,7 @@ def rect_ncc(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
                                      params.cost_max, inv_2ss,
                                      _lib.stream_ptr(out))
         _lib.check(err, "rect_ncc")
-        _lib.LAUNCHES["rect_ncc"] += 1
+        _lib.count_launch("rect_ncc")
         return out
     _lib.require(sdisp, "sdisp", torch.float32, (S, Hp, Wp), dev)
     gout = torch.empty_like(out)
@@ -328,7 +328,7 @@ def rect_ncc(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
             clampv, params.cost_max, params.geom_max_cost, inv_2ss,
             _lib.stream_ptr(out))
     _lib.check(err, "rect_ncc_geom")
-    _lib.LAUNCHES["rect_ncc_geom"] += 1
+    _lib.count_launch("rect_ncc_geom")
     return out, gout
 
 

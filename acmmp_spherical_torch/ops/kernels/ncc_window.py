@@ -320,7 +320,7 @@ def ncc_window(src, dep, off_y, off_x, cam, nrm, w, xs, ys, taps, weights,
             err = lib.acmmp_ncc_window(src.data_ptr(), *common, *shape,
                                        params.cost_max, _lib.stream_ptr(out))
         _lib.check(err, "ncc_window")
-        _lib.LAUNCHES["ncc_window"] += 1
+        _lib.count_launch("ncc_window")
         return out
     _lib.require(dep, "dep", torch.float32, (S, Hp, Wp), dev)
     gout = torch.empty_like(out)
@@ -329,7 +329,7 @@ def ncc_window(src, dep, off_y, off_x, cam, nrm, w, xs, ys, taps, weights,
             src.data_ptr(), dep.data_ptr(), *common, gout.data_ptr(), *shape,
             params.cost_max, params.geom_max_cost, _lib.stream_ptr(out))
     _lib.check(err, "ncc_window_geom")
-    _lib.LAUNCHES["ncc_window_geom"] += 1
+    _lib.count_launch("ncc_window_geom")
     return out, gout
 
 

@@ -86,7 +86,7 @@ def warp_src_frames(src_images, Hinv, widths, heights, rect_hw, warp_win):
             Wp, HpR, WpR, WR, WC, int(warp_win is not None),
             _lib.stream_ptr(out))
     _lib.check(err, "warp_src_frames")
-    _lib.LAUNCHES["warp_src_frames"] += 1
+    _lib.count_launch("warp_src_frames")
     return out
 
 
@@ -152,5 +152,5 @@ def warp_src_disparities(src_depths, Hinv, R_sr, K_s, fB, widths, heights,
             Wp, HpR, WpR, WR, WC, int(warp_win is not None),
             _lib.stream_ptr(out))
     _lib.check(err, "warp_src_disparities")
-    _lib.LAUNCHES["warp_src_disparities"] += 1
+    _lib.count_launch("warp_src_disparities")
     return out

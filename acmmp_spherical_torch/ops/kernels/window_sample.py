@@ -96,7 +96,7 @@ def windowed_sample(src, x, y, *, src_h: int, src_w: int):
             ok.data_ptr(), H, W, Hp, Wp, MARGIN, float(src_h), float(src_w),
             _lib.stream_ptr(val))
     _lib.check(err, "window_sample")
-    _lib.LAUNCHES["window_sample"] += 1
+    _lib.count_launch("window_sample")
     return val, ok
 
 

@@ -4,13 +4,23 @@
 
     python -m acmmp_spherical_torch reconstruct <dense_folder> [--no-prior]
         [--resume] [--seed N] [--max-src-views K] [--size-bound B]
-        [--device {cuda,cpu}]
+        [--batch {auto,on,off}] [--device {cuda,cpu}]
+        [--distributed [--coordinator HOST:PORT] [--num-processes N]
+         [--process-id R]]
     python -m acmmp_spherical_torch convert --dense_folder <colmap>
         --save_folder <scene> [--model_ext {.txt,.bin}] [--max_d D]
         [--interval_scale S] [--theta0 T] [--top_k K] [--min_shared M]
 
 The reference's binary takes the scene folder alone (main.cpp:392-399).
 The run is on the CUDA device unless ``--device cpu`` asks for the CPU.
+``--distributed`` runs the command as one rank of several processes (one
+command per rank, on one or several hosts sharing the scene folder): it
+starts a gloo process group at ``tcp://<coordinator>``, or from torchrun's
+environment (``env://``) without ``--coordinator``; a rank runs on CUDA
+device ``(LOCAL_RANK or its rank) % device_count``.  The ranks exchange
+only files and barriers, so gloo serves, and several ranks may share one
+GPU.  A barrier that waits longer than ``--barrier-timeout`` seconds (a
+rank died) fails the run.
 ``convert`` turns a COLMAP sparse model (pinhole models or the SPHERE model
 id 11) into a scene folder, on the host (colmap2mvsnet_acm.py).
 """
@@ -21,16 +31,53 @@ import argparse
 import sys
 
 
+def _init_distributed(args):
+    """Start the gloo process group; returns (rank, device)."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", init_method=(f"tcp://{args.coordinator}" if args.coordinator
+                             else "env://"),
+        world_size=-1 if args.num_processes is None else args.num_processes,
+        rank=-1 if args.process_id is None else args.process_id,
+        timeout=datetime.timedelta(seconds=args.barrier_timeout))
+    rank = dist.get_rank()
+    if args.device == "cpu":
+        return rank, "cpu"
+    n = torch.cuda.device_count()
+    if n == 0:
+        raise RuntimeError(f"rank {rank}: --device cuda, but this host has "
+                           "no CUDA device")
+    index = int(os.environ.get("LOCAL_RANK", rank)) % n
+    torch.cuda.set_device(index)
+    return rank, f"cuda:{index}"
+
+
 def _reconstruct(args) -> int:
     from acmmp_spherical_torch.config import PipelineConfig
     from acmmp_spherical_torch.pipeline.multiscale import run_pipeline
 
+    rank, device = 0, args.device
+    if args.distributed:
+        rank, device = _init_distributed(args)
     cfg = PipelineConfig(planar_prior=not args.no_prior, seed=args.seed,
                          skip_if_complete=args.resume,
                          max_src_views=args.max_src_views,
-                         size_bound=args.size_bound)
-    return 0 if run_pipeline(args.dense_folder, cfg, device=args.device) > 0 \
-        else 1
+                         size_bound=args.size_bound,
+                         batch_problems=args.batch)
+    try:
+        n = run_pipeline(args.dense_folder, cfg, device=device)
+    finally:
+        if args.distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    # rank 0 fuses; the other ranks succeed by finishing their share
+    return 0 if n > 0 or rank > 0 else 1
 
 
 def _convert(args) -> int:
@@ -59,8 +106,23 @@ def main(argv=None) -> int:
     r.add_argument("--max-src-views", type=int, default=20)
     r.add_argument("--size-bound", type=int, default=1000,
                    help="pyramid coarsest-scale bound (reference main.cpp:38)")
+    r.add_argument("--batch", default="auto", choices=["auto", "on", "off"],
+                   help="chunked pass execution over the local devices"
+                        " (auto: on when >1 CUDA device, in one process)")
     r.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="the device every pass runs on")
+    r.add_argument("--distributed", action="store_true",
+                   help="run as one rank of a torch.distributed (gloo) "
+                        "group; each rank runs this same command against "
+                        "the shared scene folder")
+    r.add_argument("--coordinator", default="",
+                   help="rank 0's address host:port (default: torchrun's "
+                        "MASTER_ADDR/MASTER_PORT environment)")
+    r.add_argument("--num-processes", type=int, default=None)
+    r.add_argument("--process-id", type=int, default=None)
+    r.add_argument("--barrier-timeout", type=float, default=1800.0,
+                   help="seconds a rank waits at a barrier before the run "
+                        "fails")
     r.set_defaults(fn=_reconstruct)
 
     c = sub.add_parser("convert", help="COLMAP sparse model -> scene folder")

@@ -5,10 +5,23 @@ pass (a hierarchy pass after a JBU depth upsample on later scales) with its
 planar-prior round, then ``geom_iterations`` geometric passes; finally all
 views are fused into a coloured point cloud.
 
-Passes run one problem after the other on one device.  Each (pass, view)
-that completes is recorded in the manifest, so ``skip_if_complete`` resumes
-a run; a pass that fails is retried once on the same device and then the
-view is skipped (fusion and the later passes tolerate its missing files).
+Passes run one problem after the other on one device, or in chunks over a
+mesh of device slots (``cfg.batch_problems``, ``pipeline/batch_runner``);
+a batched pass that fails is logged and run again serially.  Each (pass,
+view) that completes is recorded in the manifest, so ``skip_if_complete``
+resumes a run; a serial pass that fails is retried once on the same device
+and then the view is skipped (fusion and the later passes tolerate its
+missing files).
+
+Several processes (the CLI's ``--distributed``, which starts a
+``torch.distributed`` process group) split a scene round-robin: rank ``r``
+of ``n`` runs problems ``r, r + n, ...`` of every pass and JBU step, the
+ranks meet at a barrier after each, and rank 0 alone fuses.  Depth maps
+cross between ranks through the scene folder, the reference's own exchange
+(ACMMP.cpp:653-678).  A multi-geometry pass runs in waves
+(``pass_runner.exchange_waves``) with a barrier after each, so every rank
+reads the depths the serial order reads and the outputs equal a
+one-process run's.
 """
 
 from __future__ import annotations
@@ -31,11 +44,22 @@ from acmmp_spherical_torch.io.scene import (
 from acmmp_spherical_torch.ops.fusion import fuse_all_views
 from acmmp_spherical_torch.ops.jbu import joint_bilateral_upsample
 from acmmp_spherical_torch.pipeline.pass_runner import (
-    _pad_stack, camera_to, compute_scene_rect_settings, process_problem,
+    _pad_stack, camera_to, compute_scene_rect_settings, exchange_waves,
+    process_problem,
 )
 from acmmp_spherical_torch.utils.log import Timings, get_logger
 
 log = get_logger(__name__)
+
+
+def process_group() -> tuple[int, int]:
+    """(rank, world size) of the started ``torch.distributed`` group, or
+    (0, 1)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def compute_multiscale_settings(sp: ScenePaths, problems: Sequence[Problem],
@@ -84,11 +108,11 @@ def joint_bilateral_upsampling_pass(sp: ScenePaths, problem: Problem,
                   up.cpu().numpy())
 
 
-def run_fusion(sp: ScenePaths, problems: Sequence[Problem],
-               cfg: PipelineConfig, *, geom: bool = True,
-               device="cuda") -> int:
-    """Load every view's final results and fuse them (RunFusionCuda analog,
-    ACMMP.cu:1817-2105).  Returns the number of fused points."""
+def fusion_inputs(sp: ScenePaths, problems: Sequence[Problem],
+                  cfg: PipelineConfig, *, geom: bool = True, device="cuda"):
+    """Every view's final depths, normals and colours, padded and stacked
+    on ``device``, its cameras at the depths' size and the source indices
+    (V, K) of ``fuse_all_views``; None when no view has results."""
     depths, normals, colors, cams, ids = [], [], [], [], []
     for p in problems:
         dpath = sp.depth_file(p.ref_image_id, geom=geom)
@@ -111,8 +135,7 @@ def run_fusion(sp: ScenePaths, problems: Sequence[Problem],
         colors.append(img.astype(np.float32))
         cams.append(scale_camera(cam, sx, sy, w, h))
     if not depths:
-        log.warning("fusion: nothing to fuse")
-        return 0
+        return None
 
     # up to fusion.max_src_views sources per reference view (reference
     # FusionProblem, ACMMP.cu:1656-1661, 2000-2017), whatever cap the
@@ -133,9 +156,20 @@ def run_fusion(sp: ScenePaths, problems: Sequence[Problem],
         nstack[i, : nr.shape[0], : nr.shape[1]] = nr
         cstack[i, : co.shape[0], : co.shape[1]] = co
     t = lambda a: torch.from_numpy(a).to(device)
-    pts, nrm, col = fuse_all_views(
-        t(dstack), t(nstack), t(cstack),
-        camera_to(stack_cameras(cams), device), src_idx, cfg.fusion)
+    return (t(dstack), t(nstack), t(cstack),
+            camera_to(stack_cameras(cams), device), src_idx)
+
+
+def run_fusion(sp: ScenePaths, problems: Sequence[Problem],
+               cfg: PipelineConfig, *, geom: bool = True,
+               device="cuda") -> int:
+    """Load every view's final results and fuse them (RunFusionCuda analog,
+    ACMMP.cu:1817-2105).  Returns the number of fused points."""
+    inputs = fusion_inputs(sp, problems, cfg, geom=geom, device=device)
+    if inputs is None:
+        log.warning("fusion: nothing to fuse")
+        return 0
+    pts, nrm, col = fuse_all_views(*inputs, cfg.fusion)
     sp.output_dir.mkdir(parents=True, exist_ok=True)
     write_ply(sp.ply_file(), pts, nrm, col)
     log.info("fusion wrote %d points -> %s", len(pts), sp.ply_file())
@@ -143,14 +177,19 @@ def run_fusion(sp: ScenePaths, problems: Sequence[Problem],
 
 
 def run_pipeline(root, cfg: PipelineConfig = PipelineConfig(), *,
-                 device="cuda", timings: Optional[Timings] = None) -> int:
+                 device="cuda", mesh=None,
+                 timings: Optional[Timings] = None) -> int:
     """Full coarse-to-fine reconstruction of a scene folder on ``device``;
-    returns the fused point count.  Per scale: a photometric pass (a
-    hierarchy pass after the first scale) with its planar-prior round, then
-    ``geom_iterations`` geometric passes (the second with multi_geometry).
-    ``timings`` (optional) collects the wall time per pass kind and scale
-    (``photometric_s1``, ``geom0_s0``, ...), per JBU pass, per fusion and
-    the ``load``, ``prior_build`` and ``write`` scopes of the passes."""
+    returns the fused point count (0 on ranks other than 0).  Per scale: a
+    photometric pass (a hierarchy pass after the first scale) with its
+    planar-prior round, then ``geom_iterations`` geometric passes (the
+    second with multi_geometry).  Batched passes (``cfg.batch_problems``)
+    run over ``mesh`` (default: every local CUDA device in a one-process
+    run, else ``device`` alone).  ``timings`` (optional) collects the wall
+    time per pass kind and scale (``photometric_s1``, ``geom0_s0``, ...;
+    per problem, or per batched pass), per JBU pass, per fusion and the
+    ``load``, ``prior_build`` and ``write`` scopes of the passes (and the
+    ``load_wait`` scope of batched ones)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_pipeline: device cuda asked for, but CUDA is "
@@ -160,7 +199,31 @@ def run_pipeline(root, cfg: PipelineConfig = PipelineConfig(), *,
     sp = ScenePaths(root)
     problems = read_pair_file(sp.pair_file)
     sp.output_dir.mkdir(parents=True, exist_ok=True)
-    log.info("%d problems on %s", len(problems), device)
+    rank, world = process_group()
+    log.info("%d problems on %s, rank %d of %d", len(problems), device, rank,
+             world)
+
+    def barrier(name: str) -> None:
+        if world > 1:
+            import torch.distributed as dist
+
+            log.info("barrier %s", name)
+            dist.barrier()
+
+    batched = cfg.batch_problems == "on" or (
+        cfg.batch_problems == "auto" and device.type == "cuda" and world == 1
+        and torch.cuda.device_count() > 1)
+    if batched:
+        from acmmp_spherical_torch.parallel.mesh import make_view_mesh
+        from acmmp_spherical_torch.pipeline.batch_runner import (
+            run_pass_batched,
+        )
+
+        if mesh is None:
+            mesh = make_view_mesh(devices=None if device.type == "cuda"
+                                  and world == 1 else [device])
+        log.info("batched passes over %d slots: %s", mesh.size,
+                 [str(d) for d in mesh.devices])
 
     def run_one(idx, pass_name, **kw):
         pid = problems[idx].ref_image_id
@@ -178,15 +241,39 @@ def run_pipeline(root, cfg: PipelineConfig = PipelineConfig(), *,
                               "; retrying" if attempt == 0
                               else " twice; skipping the view")
 
+    def run_batched(order, pass_name, **kw) -> bool:
+        try:
+            with timings.scope(pass_name):
+                run_pass_batched(sp, problems, order, cfg, mesh=mesh,
+                                 timings=timings, **kw)
+        except Exception:
+            log.exception("batched pass %s failed; falling back to serial "
+                          "execution", pass_name)
+            return False
+        for i in order:
+            mark_pass_complete(sp, pass_name, problems[i].ref_image_id)
+        return True
+
     def run_all(tag, scale, **kw):
         pass_name = f"{tag}_s{scale}"
-        order = [i for i in range(len(problems))
-                 if not (cfg.skip_if_complete and is_pass_complete(
-                     sp, pass_name, problems[i].ref_image_id))]
-        if cfg.skip_if_complete:
-            log.info("%s: %d problems to run", pass_name, len(order))
-        for i in order:
-            run_one(i, pass_name, **kw)
+        # a multi-geometry pass reads the depths it rewrites: across ranks
+        # its problems run in waves that keep the serial order's exchange
+        waves = (exchange_waves(problems, cfg)
+                 if world > 1 and kw.get("multi_geometry")
+                 else [range(len(problems))])
+        for w, wave in enumerate(waves):
+            order = [i for i in wave if i % world == rank
+                     and not (cfg.skip_if_complete and is_pass_complete(
+                         sp, pass_name, problems[i].ref_image_id))]
+            if cfg.skip_if_complete:
+                log.info("%s: %d problems to run", pass_name, len(order))
+            if order and not (batched and run_batched(order, pass_name,
+                                                      **kw)):
+                for i in order:
+                    run_one(i, pass_name, **kw)
+            if w + 1 < len(waves):
+                barrier(f"{pass_name} wave {w}")
+        barrier(pass_name)
 
     max_k = compute_multiscale_settings(sp, problems, cfg)
     base_cfg = cfg
@@ -203,16 +290,20 @@ def run_pipeline(root, cfg: PipelineConfig = PipelineConfig(), *,
         if scale == max_k:
             run_all("photometric", scale, planar_prior=cfg.planar_prior)
         else:
-            for p in problems:
+            for p in problems[rank::world]:
                 with timings.scope(f"jbu_s{scale}"):
                     joint_bilateral_upsampling_pass(sp, p, p.cur_image_size,
                                                     device)
+            barrier(f"jbu_s{scale}")
             run_all("hierarchy", scale, planar_prior=cfg.planar_prior,
                     hierarchy=True)
         for gi in range(cfg.geom_iterations):
             run_all(f"geom{gi}", scale, geom=True, multi_geometry=gi > 0)
 
-    with timings.scope("fusion"):
-        n = run_fusion(sp, problems, cfg, geom=True, device=device)
+    n = 0
+    if rank == 0:
+        with timings.scope("fusion"):
+            n = run_fusion(sp, problems, cfg, geom=True, device=device)
+    barrier("fusion")
     log.info("pipeline timings: %s", timings.summary())
     return n

@@ -174,6 +174,39 @@ def compute_scene_rect_settings(sp: ScenePaths, problems: Sequence[Problem],
                      sphere_live_n=live_s)
 
 
+def exchange_predecessors(problems: Sequence[Problem],
+                          cfg: PipelineConfig) -> dict:
+    """For a multi-geometry pass: problem index -> the earlier problems it
+    must follow.  Such a pass reads its source views' depths_geom.dmb,
+    which the same pass rewrites, so in the serial order (main.cpp:441-446)
+    a problem sees the new depths of the sources before it and the old ones
+    of the sources after it.  A later problem follows an earlier one when
+    either is a source of the other: it may not read the earlier one's
+    depths before they are written, nor write its own before the earlier
+    one has read them."""
+    pos = {p.ref_image_id: i for i, p in enumerate(problems)}
+    src = [{pos[s] for s in _src_ids(p, cfg) if s in pos} for p in problems]
+    return {k: {j for j in range(k) if j in src[k] or k in src[j]}
+            for k in range(len(problems))}
+
+
+def exchange_waves(problems: Sequence[Problem],
+                   cfg: PipelineConfig) -> list:
+    """The problems of a multi-geometry pass in waves: a problem's wave is
+    one past the last wave of the problems it follows
+    (``exchange_predecessors``), so the problems of a wave may run at once
+    and the pass reads what the serial order reads when the waves run one
+    after the other."""
+    follow = exchange_predecessors(problems, cfg)
+    level: dict = {}
+    for k in range(len(problems)):
+        level[k] = 1 + max((level[j] for j in follow[k]), default=-1)
+    waves = [[] for _ in range(1 + max(level.values(), default=-1))]
+    for k in range(len(problems)):
+        waves[level[k]].append(k)
+    return waves
+
+
 def _pad_stack(arrays: Sequence[np.ndarray]) -> np.ndarray:
     """Zero-pad 2D arrays to a common (Hp, Wp) and stack."""
     hp = max(a.shape[0] for a in arrays)

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import threading
 import time
 
 _FORMAT = "%(asctime)s %(levelname).1s %(name)s: %(message)s"
@@ -24,13 +25,16 @@ class Timings:
     ``hook``, when given, is called as ``hook(name, True)`` as each scope
     opens and ``hook(name, False)`` as it closes (after its time is
     recorded), so a caller can take its own readings per scope.  Seconds
-    added to ``excluded_s`` while a scope is open are left out of it."""
+    added to ``excluded_s`` while a scope is open are left out of it.
+    Scopes may open in several threads at once (the batched pass runner's
+    loader and slots); each records its own duration."""
 
     def __init__(self, hook=None):
         self.totals: dict[str, float] = {}
         self.counts: dict[str, int] = {}
         self.hook = hook
         self.excluded_s = 0.0
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def scope(self, name: str):
@@ -41,8 +45,9 @@ class Timings:
             yield
         finally:
             dt = time.perf_counter() - t0 - (self.excluded_s - x0)
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+            with self._lock:
+                self.totals[name] = self.totals.get(name, 0.0) + dt
+                self.counts[name] = self.counts.get(name, 0) + 1
             if self.hook is not None:
                 self.hook(name, False)
 

@@ -98,7 +98,29 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    than 1500 fused points, more than 70% of them within 0.2 of the cube
    surface (tests/test_multiscale_sphere.py:77-81); then ``convert`` on a
    small synthetic COLMAP model with a SPHERE camera, whose scene folder
-   must read back.
+   must read back;
+12. the batched pipeline: phase 9's scene through ``run_pipeline`` with
+   ``batch_problems="on"`` over a mesh of 3 slots of the one card (chunks
+   of 3, 3 and 2 problems, each slot a host thread on a CUDA stream of its
+   own) with the serial ``process_problem`` made to raise, twice: once
+   with the first launch of each kernel at each operand shape in each
+   (pass, round, slot) held bit for bit against its plain version, once
+   timed.  Every file of each run (``.dmb``, ``triangulation.png``, the
+   manifest, the PLY) must equal phase 9's byte for byte and its launches
+   per pass and round phase 9's; then ``fuse_all_views_sharded`` over the
+   3 slots on phase 9's results must equal ``fuse_all_views``, and
+   ``multichip_step`` on 8 synthetic problems (256x192, 3 sources, the
+   windowed path) over the 3 slots must equal the step on one slot bit for
+   bit.  The wall time
+   beside phase 9's, the loads and the time waited for them (their
+   overlap with device work) and the peak memory are printed;
+13. ``python -m acmmp_spherical_torch reconstruct --distributed`` as two
+   ranks on the one card (a gloo group on 127.0.0.1, each rank printing
+   its launch counts as it exits) on a copy of phase 11's scene: both exit
+   0, each runs the round-robin share of every pass, only rank 0 fuses,
+   every file equals phase 11's byte for byte (the manifest as sets of
+   entries: ranks mark in completion order), and the ranks' launches add
+   up to phase 11's.
 Every kernel must have been launched by one of the driven paths.
 
 Prints the card's name and power limit, one JSON line of kernel results,
@@ -117,6 +139,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -179,6 +202,11 @@ SPHERE_PIPELINE_SCENE = dict(
     cameras=dict(model="sphere"), err_border=0, depth_err_max=0.08,
     min_points=1500, tau=0.2, on_surface_min=0.7,
     kernels=("rect_ncc", "rect_ncc_geom"))
+# phase 12: slots of the one card for the batched pipeline (the phase-9
+# scene's 8 problems in chunks of 3, 3 and 2) and the view-parallel step's
+# synthetic batch
+BATCH_SLOTS = 3
+MULTICHIP_BATCH = dict(n=8, width=256, height=192, n_src=3, focal=224.0)
 ODD_SCENE = dict(width=95, height=64, n_src=3, focal=80.0, radius=0.35)
 PHOT_KERNELS = ("rect_ncc", "warp_transport", "warp_src_frames")
 GEOM_KERNELS = ("rect_ncc_geom", "warp_transport", "warp_src_frames",
@@ -940,34 +968,44 @@ def _max_err(a, b) -> float:
 class LaunchScopes:
     """The ``Timings`` hook of a ``run_pipeline`` run: it reads the launch
     counters as each pass scope (``photometric_s1``, ``geom0_s0``, ...)
-    opens and closes, and as the pass's ``prior_build`` scope closes, and
-    sorts the launches by pass and round (``main``; ``prior`` after the
-    prior build).  ``check`` holds the first launch of each kernel at each
-    set of operand shapes in each (pass, round) against the kernel's plain
-    version; its own time is left out of every scope and its peak memory
-    out of ``peak``."""
+    opens and closes, as a ``prior_build`` scope closes (the prior round
+    follows) and as a ``write`` scope closes (a serial problem, or a
+    batched chunk, is done: the next one starts with its main round), and
+    sorts the launches by pass and round (``main``; ``prior``).  ``check``
+    holds the first launch of each kernel at each set of operand shapes in
+    each (pass, round, slot) against the kernel's plain version (slot None
+    in a serial run; several slots may check at once, one at a time); its
+    own time is left out of every scope and its peak memory out of
+    ``peak``."""
 
     def __init__(self):
+        import threading
+
         from acmmp_spherical_torch.utils.log import Timings
 
         self.timings = Timings(hook=self)
         self.by_round: dict = {}      # (pass, round) -> {kernel: launches}
         self.prior_rounds: dict = {}  # pass -> rounds that launched
-        self.checks: dict = {}        # (pass, round, kernel, shapes) -> err
+        self.checks: dict = {}        # (pass, round, slot, kernel, shapes)
         self.failures: list = []
         self.peak = 0
         self._pass = self._round = None
         self._snap: dict = {}
+        self._lock = threading.Lock()
 
     def _close_round(self):
+        """Add the launches since the last reading to the current (pass,
+        round); returns them."""
         from acmmp_spherical_torch.ops.kernels import _lib
 
+        now = dict(_lib.LAUNCHES)
+        delta = {k: v - self._snap[k] for k, v in now.items()}
         acc = self.by_round.setdefault((self._pass, self._round),
                                        dict.fromkeys(_lib.LAUNCHES, 0))
-        for k, v in _lib.LAUNCHES.items():
-            acc[k] += v - self._snap[k]
-        self._snap = dict(_lib.LAUNCHES)
-        return acc
+        for k, v in delta.items():
+            acc[k] += v
+        self._snap = now
+        return delta
 
     def __call__(self, name: str, entering: bool) -> None:
         import re
@@ -979,41 +1017,62 @@ class LaunchScopes:
             if is_pass:
                 self._pass, self._round = name, "main"
                 self._snap = dict(_lib.LAUNCHES)
-        elif name == "prior_build" and self._pass is not None:
+        elif self._pass is None:
+            return
+        elif name == "prior_build":
             self._close_round()
             self._round = "prior"
-        elif is_pass:
+        elif name == "write" or is_pass:
             round_ = self._round
-            acc = self._close_round()
-            if round_ == "prior" and (acc["rect_ncc"] or acc["ncc_window"]):
-                self.prior_rounds[name] = self.prior_rounds.get(name, 0) + 1
-            self._pass = self._round = None
+            delta = self._close_round()
+            launched = delta["rect_ncc"] or delta["ncc_window"]
+            if round_ == "prior" and launched:
+                self.prior_rounds[self._pass] = (
+                    self.prior_rounds.get(self._pass, 0) + 1)
+            self._round = "main"
+            if is_pass:
+                self._pass = self._round = None
 
     def check(self, kernel, shapes, out, plain):
         import torch
 
-        key = (self._pass, self._round, kernel, shapes)
-        if key in self.checks:
-            return
-        torch.cuda.synchronize()
-        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
-        t0 = time.perf_counter()
-        ref = plain()
-        torch.cuda.synchronize()
-        same, err = _same(out, ref), _max_err(out, ref)
-        del ref
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        self.timings.excluded_s += time.perf_counter() - t0
-        self.checks[key] = err
-        if not same:
-            # kept, since run_pipeline retries a failed pass and then
-            # skips the view
-            self.failures.append(
-                f"{kernel} in {self._pass} ({self._round} round), "
-                f"operands {shapes}: not bit-identical to the plain "
-                f"version, max err {err}")
-            raise AssertionError(self.failures[-1])
+        from acmmp_spherical_torch.parallel.mesh import current_slot
+
+        key = (self._pass, self._round, current_slot(), kernel, shapes)
+        with self._lock:
+            if key in self.checks:
+                return
+            torch.cuda.synchronize()
+            self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+            t0 = time.perf_counter()
+            ref = plain()
+            torch.cuda.synchronize()
+            same, err = _same(out, ref), _max_err(out, ref)
+            del ref
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.timings.excluded_s += time.perf_counter() - t0
+            self.checks[key] = err
+            if not same:
+                # kept, since run_pipeline retries a failed pass and then
+                # skips the view
+                self.failures.append(
+                    f"{kernel} in {self._pass} ({self._round} round, slot "
+                    f"{key[2]}), operands {shapes}: not bit-identical to "
+                    f"the plain version, max err {err}")
+                raise AssertionError(self.failures[-1])
+
+
+# the kernel each checked wrapper launches, from its bound arguments
+KERNEL_OF = {
+    "coefficient_transport": lambda a: "warp_transport",
+    "rect_ncc": lambda a: ("rect_ncc" if a.get("sdisp") is None
+                           else "rect_ncc_geom"),
+    "warp_src_frames": lambda a: "warp_src_frames",
+    "warp_src_disparities": lambda a: "warp_src_disparities",
+    "ncc_window": lambda a: ("ncc_window" if a.get("dep") is None
+                             else "ncc_window_geom"),
+}
 
 
 @contextlib.contextmanager
@@ -1021,6 +1080,8 @@ def checked_kernels(scopes):
     """Route the wrappers of kernels 1-6 through ``scopes.check``: the
     wrapper runs (and counts its launch) as always, then its plain version
     runs on the same operands, uncounted."""
+    import inspect
+
     import torch
 
     from acmmp_spherical_torch.ops import sphere_rect as SR
@@ -1029,11 +1090,15 @@ def checked_kernels(scopes):
     from acmmp_spherical_torch.ops.kernels import ncc_window as NW
     from acmmp_spherical_torch.ops.kernels import warp_image as WI
 
-    def checked(fn, plain):
+    def checked(name, fn, plain):
+        sig = inspect.signature(plain)   # the wrapper's parameters
+
         def call(*args, **kw):
-            before = dict(_lib.LAUNCHES)
+            kernel = KERNEL_OF[name](sig.bind(*args, **kw).arguments)
+            before = _lib.LAUNCHES[kernel]
             out = fn(*args, **kw)
-            kernel, = (k for k, v in _lib.LAUNCHES.items() if v != before[k])
+            if _lib.LAUNCHES[kernel] <= before:
+                raise AssertionError(f"{name} did not launch {kernel}")
             shapes = tuple(tuple(a.shape) for a in (*args, *kw.values())
                            if torch.is_tensor(a))
             scopes.check(kernel, shapes, out, lambda: plain(*args, **kw))
@@ -1048,7 +1113,7 @@ def checked_kernels(scopes):
              (NW, "ncc_window", NW.ncc_window_plain)]
     kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
-        setattr(mod, name, checked(getattr(mod, name), plain))
+        setattr(mod, name, checked(name, getattr(mod, name), plain))
     try:
         yield
     finally:
@@ -1056,12 +1121,76 @@ def checked_kernels(scopes):
             setattr(mod, name, fn)
 
 
-def run_pipeline_phase(dev, sc):
-    """Phase 9 (pinhole) or 11 (SPHERE): ``run_pipeline`` on the CubeRoom
-    ring ``sc`` written to a temporary folder; returns its numbers, with
-    the launch counts of the run under ``launches``."""
-    import tempfile
+@contextlib.contextmanager
+def serial_passes_disabled():
+    """Make the serial ``process_problem`` raise, so a batched run that
+    fell back to it fails."""
+    from acmmp_spherical_torch.pipeline import multiscale
 
+    def no_serial(*args, **kw):
+        raise AssertionError("a batched pass fell back to process_problem")
+
+    kept = multiscale.process_problem
+    multiscale.process_problem = no_serial
+    try:
+        yield
+    finally:
+        multiscale.process_problem = kept
+
+
+def write_pipeline_scene(sc, root):
+    """Render the CubeRoom ring ``sc`` and write it to ``root`` in the
+    on-disk layout; returns (ground-truth depths, seconds)."""
+    from acmmp_spherical_torch.utils.synthetic import (
+        CubeRoom, make_ring_of_cameras, render_scene,
+        write_synthetic_scene_to_disk,
+    )
+
+    t0 = time.perf_counter()
+    cams = make_ring_of_cameras(sc["n_views"], **sc["cameras"],
+                                width=sc["width"], height=sc["height"],
+                                device="cpu")
+    images, gt, _ = render_scene(cams, CubeRoom(), sc["width"], sc["height"])
+    write_synthetic_scene_to_disk(root, cams, images)
+    return gt, time.perf_counter() - t0
+
+
+def scene_copy(work, sc, name):
+    """A fresh copy of the phase's input scene under ``work``."""
+    import shutil
+
+    root = work / f"{sc['label']}_{name}"
+    shutil.copytree(work / f"{sc['label']}_input", root)
+    return root
+
+
+def outputs_differ(a, b, *, manifest_as_sets=False) -> list:
+    """The files under ``a/ACMMP`` and ``b/ACMMP`` that differ (or exist in
+    one only); the manifest compared as sets of entries per pass when
+    ``manifest_as_sets``."""
+    import filecmp
+
+    fa = {p.relative_to(a) for p in (a / "ACMMP").rglob("*") if p.is_file()}
+    fb = {p.relative_to(b) for p in (b / "ACMMP").rglob("*") if p.is_file()}
+    differ = sorted(str(f) for f in fa ^ fb)
+    for f in sorted(fa & fb):
+        if manifest_as_sets and f.name == "manifest.json":
+            ma, mb = (json.loads((r / f).read_text()) for r in (a, b))
+            if {k: sorted(v) for k, v in ma.items()} != {
+                    k: sorted(v) for k, v in mb.items()}:
+                differ.append(str(f))
+        elif not filecmp.cmp(a / f, b / f, shallow=False):
+            differ.append(str(f))
+    return differ
+
+
+def run_pipeline_phase(dev, sc, work, gt, name, *, mesh=None, checked=True):
+    """Phase 9 (pinhole), 11 (SPHERE) or 12 (batched over ``mesh``):
+    ``run_pipeline`` on a fresh copy ``name`` of the ring ``sc`` under
+    ``work``; returns its numbers, with its folder under ``root`` and the
+    launch counts of the run under ``launches``.  ``checked``: hold the
+    first launch of each kernel at each operand shape against its plain
+    version (the checks' time is left out of ``wall_s``)."""
     import numpy as np
     import torch
 
@@ -1073,88 +1202,89 @@ def run_pipeline_phase(dev, sc):
     from acmmp_spherical_torch.utils.metrics import (
         cube_surface_distance, depth_error_stats,
     )
-    from acmmp_spherical_torch.utils.synthetic import (
-        CubeRoom, make_ring_of_cameras, render_scene,
-        write_synthetic_scene_to_disk,
-    )
+    from acmmp_spherical_torch.utils.synthetic import CubeRoom
 
     n_views = sc["n_views"]
     room = CubeRoom()
-    t0 = time.perf_counter()
-    cams = make_ring_of_cameras(n_views, **sc["cameras"], width=sc["width"],
-                                height=sc["height"], device="cpu")
-    images, gt, _ = render_scene(cams, room, sc["width"], sc["height"])
-
-    with tempfile.TemporaryDirectory() as tmp:
-        root = pathlib.Path(tmp) / "scene"
-        write_synthetic_scene_to_disk(root, cams, images)
-        scene_s = time.perf_counter() - t0
-        scopes = LaunchScopes()
-        timings = scopes.timings
-        torch.cuda.reset_peak_memory_stats()
-        _lib.reset_launch_counts()
-        with checked_kernels(scopes):
-            t0 = time.perf_counter()
-            n_points = multiscale.run_pipeline(root, PipelineConfig(),
-                                               device=dev, timings=timings)
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0 - timings.excluded_s
-        if scopes.failures:
-            raise AssertionError("; ".join(scopes.failures))
-        launches = dict(_lib.LAUNCHES)
-        peak = max(scopes.peak, torch.cuda.max_memory_allocated())
-        sp = ScenePaths(root)
-        manifest = json.loads(sp.manifest_file().read_text())
-        expected = [f"{tag}_s{s}" for s in (1, 0) for tag in (
-            "photometric" if s == 1 else "hierarchy", "geom0", "geom1")]
-        entries = sum(len(set(manifest.get(k, [])) & set(range(n_views)))
-                      for k in expected)
-        errs = [depth_error_stats(read_depth_dmb(sp.depth_file(v, geom=True)),
-                                  gt[v], border=sc["err_border"])
-                ["median_rel_err"] for v in range(n_views)]
-        pts = read_ply(sp.ply_file())[0]
-        on_surface = float(np.mean(cube_surface_distance(pts, room.half)
-                                   < sc["tau"])) if len(pts) else 0.0
+    root = scene_copy(work, sc, name)
+    cfg = PipelineConfig(batch_problems="off" if mesh is None else "on")
+    scopes = LaunchScopes()
+    timings = scopes.timings
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        if checked:
+            stack.enter_context(checked_kernels(scopes))
+        if mesh is not None:
+            stack.enter_context(serial_passes_disabled())
+        t0 = time.perf_counter()
+        n_points = multiscale.run_pipeline(root, cfg, device=dev, mesh=mesh,
+                                           timings=timings)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0 - timings.excluded_s
+    if scopes.failures:
+        raise AssertionError("; ".join(scopes.failures))
+    launches = dict(_lib.LAUNCHES)
+    peak = max(scopes.peak, torch.cuda.max_memory_allocated())
+    sp = ScenePaths(root)
+    manifest = json.loads(sp.manifest_file().read_text())
+    expected = [f"{tag}_s{s}" for s in (1, 0) for tag in (
+        "photometric" if s == 1 else "hierarchy", "geom0", "geom1")]
+    entries = sum(len(set(manifest.get(k, [])) & set(range(n_views)))
+                  for k in expected)
+    errs = [depth_error_stats(read_depth_dmb(sp.depth_file(v, geom=True)),
+                              gt[v], border=sc["err_border"])
+            ["median_rel_err"] for v in range(n_views)]
+    pts = read_ply(sp.ply_file())[0]
+    on_surface = float(np.mean(cube_surface_distance(pts, room.half)
+                               < sc["tau"])) if len(pts) else 0.0
     by_round = {f"{p} {r}": {k: v for k, v in acc.items() if v}
                 for (p, r), acc in scopes.by_round.items()}
     checks = {}
-    for (p, r, k, _), err in scopes.checks.items():
-        c = checks.setdefault(f"{p} {r} {k}", dict(shapes=0, max_abs_err=0.0))
+    for (p, r, slot, k, _), err in scopes.checks.items():
+        c = checks.setdefault(f"{p} {r} {k}", dict(shapes=0, max_abs_err=0.0,
+                                                   slots=[]))
         c["shapes"] += 1
         c["max_abs_err"] = max(c["max_abs_err"], err)
-    out = dict(scene_s=scene_s, wall_s=wall_s, timings_s=timings.totals,
+        if slot not in c["slots"]:
+            c["slots"].append(slot)
+    out = dict(root=str(root), wall_s=wall_s, timings_s=timings.totals,
                timing_counts=timings.counts, peak_mem_bytes=peak,
                manifest_entries=entries, median_rel_depth_err=errs,
                fused_points=n_points, on_surface=on_surface,
                launches=launches, launches_by_round=by_round,
                prior_rounds=scopes.prior_rounds, plain_checks=checks,
                plain_check_s=timings.excluded_s)
-    log(f"pipeline {sc['label']} {sc['width']}x{sc['height']}x{n_views} "
-        f"views: {json.dumps(out)}")
+    log(f"pipeline {sc['label']} {name} {sc['width']}x{sc['height']}x"
+        f"{n_views} views: {json.dumps(out)}")
     if entries != len(expected) * n_views:
         raise AssertionError(f"pipeline manifest holds {entries} of "
                              f"{len(expected) * n_views} (pass, view) "
                              f"entries: {manifest}")
-    ran = {k: timings.counts.get(k, 0) for k in expected}
-    if any(n != n_views for n in ran.values()):
-        raise AssertionError(f"pass scopes per pass: {ran}; every view must "
-                             "run every pass once, with no retry")
-    prior = {k: scopes.prior_rounds.get(k, 0) for k in expected[::3]}
-    if any(n != n_views for n in prior.values()):
-        raise AssertionError(f"prior rounds that launched a kernel: {prior}; "
-                             f"every view's {' and '.join(prior)} pass must "
-                             "run its planar-prior round")
+    if mesh is None:
+        ran = {k: timings.counts.get(k, 0) for k in expected}
+        if any(n != n_views for n in ran.values()):
+            raise AssertionError(f"pass scopes per pass: {ran}; every view "
+                                 "must run every pass once, with no retry")
+        prior = {k: scopes.prior_rounds.get(k, 0) for k in expected[::3]}
+        if any(n != n_views for n in prior.values()):
+            raise AssertionError(f"prior rounds that launched a kernel: "
+                                 f"{prior}; every view's "
+                                 f"{' and '.join(prior)} pass must run its "
+                                 "planar-prior round")
     for k in sc["kernels"]:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the "
                                  "pipeline")
-    unchecked = [f"{p} {r} {k}" for (p, r), acc in scopes.by_round.items()
-                 for k, v in acc.items() if v and k != "window_sample"
-                 and f"{p} {r} {k}" not in checks]
-    if unchecked:
-        raise AssertionError("kernels launched in the pipeline without a "
-                             f"check against their plain version: {unchecked}")
-    log(f"pipeline {sc['label']} gates: median rel depth err per view "
+    if checked:
+        unchecked = [f"{p} {r} {k}" for (p, r), acc in scopes.by_round.items()
+                     for k, v in acc.items() if v and k != "window_sample"
+                     and f"{p} {r} {k}" not in checks]
+        if unchecked:
+            raise AssertionError("kernels launched in the pipeline without a "
+                                 f"check against their plain version: "
+                                 f"{unchecked}")
+    log(f"pipeline {sc['label']} {name} gates: median rel depth err per view "
         f"{errs} < {sc['depth_err_max']}; {n_points} fused points > "
         f"{sc['min_points']}; {on_surface} of them within {sc['tau']} of the "
         f"surface > {sc['on_surface_min']}")
@@ -1164,6 +1294,198 @@ def run_pipeline_phase(dev, sc):
             and on_surface > sc["on_surface_min"]):
         raise AssertionError(f"fused cloud: {n_points} points, "
                              f"{on_surface} on the surface")
+    return out
+
+
+def run_batched_phase(dev, sc, work, gt, serial):
+    """Phase 12: the phase-9 scene through ``run_pipeline`` with
+    ``batch_problems="on"`` over ``BATCH_SLOTS`` slots of the one card and
+    the serial ``process_problem`` made to raise: once with every slot's
+    first launches checked, once timed; each run's files must equal phase
+    9's byte for byte and its launches per pass and round phase 9's.  Then
+    ``fuse_all_views_sharded`` over the slots on phase 9's results, and
+    ``multichip_step`` on a synthetic batch over the slots against one
+    slot."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from acmmp_spherical_torch.config import PipelineConfig
+    from acmmp_spherical_torch.io.scene import ScenePaths, read_pair_file
+    from acmmp_spherical_torch.ops import rng as R
+    from acmmp_spherical_torch.ops.fusion import fuse_all_views
+    from acmmp_spherical_torch.parallel import (
+        make_view_mesh, multichip_step, shard_batch_over_views,
+    )
+    from acmmp_spherical_torch.parallel.fusion import fuse_all_views_sharded
+    from acmmp_spherical_torch.parallel.synthetic_batch import (
+        make_synthetic_batch,
+    )
+    from acmmp_spherical_torch.pipeline.multiscale import fusion_inputs
+
+    mesh = make_view_mesh(devices=[dev] * BATCH_SLOTS)
+    out = {}
+    for name, checked in (("batched_checked", True), ("batched", False)):
+        run = run_pipeline_phase(dev, sc, work, gt, name, mesh=mesh,
+                                 checked=checked)
+        differ = outputs_differ(pathlib.Path(serial["root"]),
+                                pathlib.Path(run["root"]))
+        if checked:
+            shutil.rmtree(run["root"])
+        if differ:
+            raise AssertionError(f"phase 12 ({name}): files differ from "
+                                 f"phase 9's: {differ}")
+        if run["launches_by_round"] != serial["launches_by_round"]:
+            raise AssertionError(
+                f"phase 12 ({name}): launches per pass and round "
+                f"{run['launches_by_round']}, phase 9 "
+                f"{serial['launches_by_round']}")
+        if checked:
+            slots = {s for c in run["plain_checks"].values()
+                     for s in c["slots"]}
+            if slots != set(range(BATCH_SLOTS)):
+                raise AssertionError(f"phase 12 checked slots {slots}")
+        out[name] = run
+    timed = out["batched"]
+    load = timed["timings_s"].get("load", 0.0)
+    wait = timed["timings_s"].get("load_wait", 0.0)
+    log(f"phase 12: run_pipeline {timed['wall_s']:.2f} s over {BATCH_SLOTS} "
+        f"slots against {serial['wall_s']:.2f} s serial (phase 9); loads "
+        f"{load:.2f} s on the loader thread, {wait:.2f} s of it waited for "
+        f"(overlap {load - wait:.2f} s); peak {timed['peak_mem_bytes']} "
+        f"bytes (phase 9 {serial['peak_mem_bytes']}); files and launches "
+        "equal phase 9's")
+
+    # sharded fusion on phase 9's results
+    sp = ScenePaths(serial["root"])
+    inputs = fusion_inputs(sp, read_pair_file(sp.pair_file), PipelineConfig(),
+                           device=dev)
+    t0 = time.perf_counter()
+    ref = fuse_all_views(*inputs, PipelineConfig().fusion)
+    torch.cuda.synchronize()
+    fuse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = fuse_all_views_sharded(mesh, *inputs, PipelineConfig().fusion)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    if not (len(ref[0]) == serial["fused_points"]
+            and all(np.array_equal(a, b) for a, b in zip(got, ref))):
+        raise AssertionError(f"sharded fusion: {len(got[0])} points, serial "
+                             f"{len(ref[0])}, phase 9 "
+                             f"{serial['fused_points']}")
+    del inputs, ref, got
+
+    # the view-parallel step over the slots against one slot
+    mc = MULTICHIP_BATCH
+    batch, params, mgt = make_synthetic_batch(
+        mc["n"], width=mc["width"], height=mc["height"], n_src=mc["n_src"],
+        focal=mc["focal"], device=dev)
+    # the windowed path (kernel 6, from every slot): the exact path's
+    # per-tap launches take minutes under three threads
+    params = dataclasses.replace(params, fast_ncc=True)
+    steps = {}
+    for n in (BATCH_SLOTS, 1):
+        m = make_view_mesh(devices=[dev] * n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = multichip_step(m, params)(shard_batch_over_views(m, batch),
+                                        R.key(0))
+        steps[n] = ([torch.cat(a) for a in zip(*res)],
+                    time.perf_counter() - t0)
+    same = all(_same(a, b) for a, b in zip(steps[BATCH_SLOTS][0],
+                                           steps[1][0]))
+    d = steps[BATCH_SLOTS][0][0].cpu().numpy()
+    mrel = float(np.median(np.abs(d - mgt) / mgt))
+    log(f"phase 12: sharded fusion {serial['fused_points']} "
+        f"points equal to fuse_all_views ({sharded_s:.2f} s against "
+        f"{fuse_s:.2f} s); multichip_step on {mc['n']} problems "
+        f"{mc['width']}x{mc['height']}: {BATCH_SLOTS} slots "
+        f"{steps[BATCH_SLOTS][1]:.2f} s, 1 slot {steps[1][1]:.2f} s, "
+        f"bit-identical {same}, median rel depth err {mrel}")
+    if not same or not np.isfinite(d).all() or not mrel < 0.2:
+        raise AssertionError("multichip_step over the slots differs from "
+                             "one slot, or its depth is off")
+    out.update(fusion_s=fuse_s, sharded_fusion_s=sharded_s,
+               multichip_s={str(k): v[1] for k, v in steps.items()},
+               multichip_median_rel_err=mrel, load_s=load, load_wait_s=wait)
+    return out
+
+
+RANK_SCRIPT = """
+import json, runpy, sys
+from acmmp_spherical_torch.ops.kernels import _lib
+try:
+    runpy.run_module("acmmp_spherical_torch", run_name="__main__",
+                     alter_sys=True)
+finally:
+    print("LAUNCHES " + json.dumps(_lib.LAUNCHES), flush=True)
+"""
+
+
+def run_distributed_phase(sc, work, serial):
+    """Phase 13: ``python -m acmmp_spherical_torch reconstruct
+    --distributed`` as two ranks on the one card (a gloo group on
+    127.0.0.1) on a copy of the phase-11 scene; each rank prints its launch
+    counts as it exits.  Both must exit 0, run the round-robin share of
+    every pass, and only rank 0 may fuse; the files must equal phase 11's
+    byte for byte (the manifest as sets: ranks mark in completion order)
+    and the two ranks' launches add up to phase 11's."""
+    import re
+    import socket
+
+    root = scene_copy(work, sc, "distributed")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_SCRIPT, "reconstruct", str(root),
+         "--distributed", "--coordinator", f"127.0.0.1:{port}",
+         "--num-processes", "2", "--process-id", str(r),
+         "--barrier-timeout", "300"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    pathlib.Path(ROOT / "chiprun_out").mkdir(exist_ok=True)
+    for r, o in enumerate(outs):
+        (ROOT / "chiprun_out" / f"phase13_rank{r}.log").write_text(o)
+    if rcs != [0, 0]:
+        raise AssertionError(f"phase 13 ranks exited {rcs}: "
+                             + " | ".join(o[-2000:] for o in outs))
+    shares, launches = [], []
+    for r, o in enumerate(outs):
+        share = {int(m) for m in re.findall(r"pass image=(\d+)", o)}
+        shares.append(sorted(share))
+        if share != set(range(r, sc["n_views"], 2)):
+            raise AssertionError(f"rank {r} ran views {sorted(share)}")
+        launches.append(json.loads(re.findall(r"^LAUNCHES (.*)$", o,
+                                              re.M)[-1]))
+    fused = ["fusion wrote" in o for o in outs]
+    if fused != [True, False]:
+        raise AssertionError(f"fusion ran on ranks {fused}")
+    differ = outputs_differ(pathlib.Path(serial["root"]), root,
+                            manifest_as_sets=True)
+    if differ:
+        raise AssertionError(f"phase 13: files differ from phase 11's: "
+                             f"{differ}")
+    total = {k: launches[0][k] + launches[1][k] for k in launches[0]}
+    if total != serial["launches"]:
+        raise AssertionError(f"phase 13 launches {total}, phase 11 "
+                             f"{serial['launches']}")
+    out = dict(wall_s=wall_s, shares=shares, launches=total,
+               rank_launches=launches)
+    log(f"phase 13: two ranks on one card {wall_s:.2f} s (processes "
+        f"included) against {serial['wall_s']:.2f} s serial (phase 11); "
+        f"shares {shares}; files equal phase 11's; launches {total}")
     return out
 
 
@@ -1351,18 +1673,39 @@ def main() -> int:
     hworst = check_golden("golden_hier_pass_stats_rect.json",
                           golden_hier_pass(ginputs, gparams, gdepths, gnormals))
 
+    work_dir = tempfile.TemporaryDirectory()
+    work = pathlib.Path(work_dir.name)
+    scenes = {}
+    for sc in (PIPELINE_SCENE, SPHERE_PIPELINE_SCENE):
+        scenes[sc["label"]] = write_pipeline_scene(
+            sc, work / f"{sc['label']}_input")
+
     # phase 9: the pipeline at a real size, every kernel of it also held
     # against its plain version at the pipeline's own operands
-    pipe = run_pipeline_phase(dev, PIPELINE_SCENE)
+    gt, scene_s = scenes["pinhole"]
+    pipe = run_pipeline_phase(dev, PIPELINE_SCENE, work, gt, "serial")
+    pipe["scene_s"] = scene_s
 
     # phase 10: the sphere passes at 1024x512x6src, kernels 1 and 4 held
     # against their plain versions at their pole-rotated operands
     sphere = run_sphere_phase(dev, results)
 
     # phase 11: the sphere scene through run_pipeline, and convert
-    spipe = run_pipeline_phase(dev, SPHERE_PIPELINE_SCENE)
+    sgt, sscene_s = scenes["sphere"]
+    spipe = run_pipeline_phase(dev, SPHERE_PIPELINE_SCENE, work, sgt,
+                               "serial")
+    spipe["scene_s"] = sscene_s
     conv = check_convert()
-    for p_ in (pipe, spipe):
+
+    # phase 12: phase 9's scene in chunks over 3 slots of the card, every
+    # slot's kernels held against their plain versions; sharded fusion and
+    # the view-parallel step
+    bpipe = run_batched_phase(dev, PIPELINE_SCENE, work, gt, pipe)
+
+    # phase 13: phase 11's scene by two ranks of reconstruct --distributed
+    dpipe = run_distributed_phase(SPHERE_PIPELINE_SCENE, work, spipe)
+    work_dir.cleanup()
+    for p_ in (pipe, spipe, bpipe["batched_checked"]):
         for key, c in p_["plain_checks"].items():
             e = results[key.rsplit(" ", 1)[1]]
             e["max_abs_err"] = max(e["max_abs_err"], c["max_abs_err"])
@@ -1372,7 +1715,8 @@ def main() -> int:
              "warp_src_disparities", "ncc_window", "ncc_window_geom",
              "window_sample")
     paths = (phot, geom, win, wgeom, samp, pipe, sphere["phot"],
-             sphere["geom"], spipe)
+             sphere["geom"], spipe, bpipe["batched_checked"],
+             bpipe["batched"], dpipe)
     kernels = [dict(name=k, launches=sum(p["launches"][k] for p in paths),
                     **results[k]) for k in names]
     for k in kernels:
@@ -1396,6 +1740,7 @@ def main() -> int:
         "golden_prior_worst_over_tol": pworst,
         "golden_hier_worst_over_tol": hworst, "pipeline": pipe,
         "sphere": sphere, "sphere_pipeline": spipe, "convert": conv,
+        "batched_pipeline": bpipe, "distributed_pipeline": dpipe,
         "smoke_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

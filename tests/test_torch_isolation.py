@@ -3,13 +3,14 @@ import OpenCV: tiny photometric passes and geometric passes seeded from
 them on the rectified, windowed and exact paths, an odd-frame pass and the
 windowed sampler, and SPHERE photometric and geometric passes on the
 pole-rotated and exact paths run in a fresh interpreter, which also imports
-the profiling script and every module of the serial pipeline (io, prior,
-JBU, fusion, pass runner, multiscale, COLMAP converter, CLI) and then must
-not hold ``jax``, ``jaxlib``, ``acmmp_spherical_tpu`` or ``cv2`` in
-``sys.modules``; then the ``reconstruct`` command runs a tiny pinhole scene
-and a tiny SPHERE scene on the CPU (planar prior, two geometric passes,
-fusion; its images are read and written with OpenCV, as in the JAX
-package), the ``convert`` command turns a tiny SPHERE COLMAP model into a
+the profiling script and every module of the pipeline (io, prior, JBU,
+fusion, pass runner, batch runner, multiscale, COLMAP converter, CLI),
+``parallel/`` and ``utils/profiling`` and then must not hold ``jax``,
+``jaxlib``, ``acmmp_spherical_tpu`` or ``cv2`` in ``sys.modules``; then the
+``reconstruct`` command runs a tiny pinhole scene (``--batch on``: chunked
+passes over the one CPU slot) and a tiny SPHERE scene on the CPU (planar
+prior, two geometric passes, fusion; its images are read and written with
+OpenCV, as in the JAX package), the ``convert`` command turns a tiny SPHERE COLMAP model into a
 scene folder, and ``jax``, ``jaxlib`` and ``acmmp_spherical_tpu`` must
 still be absent."""
 
@@ -95,8 +96,10 @@ SCRIPT = textwrap.dedent("""
     from acmmp_spherical_torch import io, utils  # noqa: F401
     from acmmp_spherical_torch.ops import fusion, jbu  # noqa: F401
     from acmmp_spherical_torch.pipeline import (  # noqa: F401
-        cli, colmap, convert, multiscale, pass_runner, prior)
-    from acmmp_spherical_torch.utils import log, metrics  # noqa: F401
+        batch_runner, cli, colmap, convert, multiscale, pass_runner, prior)
+    from acmmp_spherical_torch.parallel import (  # noqa: F401
+        fusion as pfusion, mesh, synthetic_batch, view_parallel)
+    from acmmp_spherical_torch.utils import log, metrics, profiling  # noqa: F401
     forbidden = lambda names: sorted(
         m for m in sys.modules if m.split(".")[0] in names)
     bad = forbidden(("jax", "jaxlib", "acmmp_spherical_tpu", "cv2"))
@@ -111,7 +114,8 @@ SCRIPT = textwrap.dedent("""
                                   device="cpu")
         write_synthetic_scene_to_disk(
             tmp, sc, render_scene(sc, CubeRoom(), 48, 32)[0])
-        assert cli.main(["reconstruct", tmp, "--device", "cpu"]) == 0
+        assert cli.main(["reconstruct", tmp, "--device", "cpu",
+                         "--batch", "on"]) == 0
     with tempfile.TemporaryDirectory() as tmp:
         sc = make_ring_of_cameras(3, model="sphere", width=48, height=24,
                                   device="cpu")
