@@ -12,10 +12,12 @@ PyTorch's way to keep several devices, or several streams of one device,
 busy.  The next chunk is loaded on a thread of its own while the current
 one runs (``_prefetched``), so image and ``.dmb`` io overlaps device work.
 
-Each problem computes what ``pass_runner.process_problem`` computes, with
-the chunk's rect settings (``_make_chunk``: the JAX package's reductions)
-and the same keys, and the same ``.dmb`` files and ``triangulation.png``
-are written, equal to the serial run's byte for byte.  Three departures
+Each problem runs ``pass_runner.process_problem``'s own helpers
+(``load_seeds``, ``main_round``, ``prior_build``, ``prior_round``,
+``write_results``) with the chunk's rect settings (``_make_chunk``: the
+JAX package's reductions) and the same keys, so the same ``.dmb`` files
+and ``triangulation.png`` are written, equal to the serial run's byte for
+byte.  Three departures
 from the JAX package, all for the serial path's results: a trailing chunk
 runs only its real problems (a padded slot would be a whole extra pass
 here, not a masked lane); a problem whose planar prior is empty skips the
@@ -32,26 +34,19 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from acmmp_spherical_torch.config import PatchMatchParams, PipelineConfig
-from acmmp_spherical_torch.io import dmb
-from acmmp_spherical_torch.io.scene import Problem, ScenePaths, write_image
-from acmmp_spherical_torch.ops import rng as R
-from acmmp_spherical_torch.ops.propagate import prepare_inputs
+from acmmp_spherical_torch.io.scene import Problem, ScenePaths
 from acmmp_spherical_torch.parallel.mesh import (
     ViewMesh, make_view_mesh, run_slots, slot_context, slot_streams,
     tree_map,
 )
 from acmmp_spherical_torch.pipeline.pass_runner import (
-    LoadedProblem, _load_hierarchy_seed, _load_seed, exchange_predecessors,
-    load_problem,
-)
-from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch
-from acmmp_spherical_torch.pipeline.prior import (
-    build_planar_prior, draw_triangulation,
+    LoadedProblem, exchange_predecessors, load_problem, load_seeds,
+    main_round, prior_build, prior_round, problem_key, write_results,
 )
 from acmmp_spherical_torch.utils.log import Timings, get_logger
 
@@ -220,16 +215,17 @@ def run_pass_batched(sp: ScenePaths, problems: Sequence[Problem],
                      hierarchy: bool = False, multi_geometry: bool = False,
                      seed: Optional[int] = None,
                      mesh: Optional[ViewMesh] = None,
-                     timings: Optional[Timings] = None) -> None:
+                     timings: Optional[Timings] = None,
+                     on_written: Optional[Callable[[int], None]] = None
+                     ) -> None:
     """One pass over ``order``'s problems, chunked over ``mesh`` (default:
     every local CUDA device); the batched counterpart of
-    ``pass_runner.process_problem``, with the same outputs.  Problem keys
-    are ``fold_in(key(seed), image_id)``, the prior round's ``fold_in(k,
-    1)``.  ``timings`` gets the ``load`` (loader thread), ``load_wait``,
-    ``prior_build`` and ``write`` scopes."""
+    ``pass_runner.process_problem``, through the same round, prior and
+    write helpers.  ``on_written(idx)`` is called once a problem's files
+    are written.  ``timings`` gets the ``load`` (loader thread),
+    ``load_wait``, ``prior_build`` and ``write`` scopes."""
     mesh = make_view_mesh() if mesh is None else mesh
     timings = Timings() if timings is None else timings
-    base_key = R.key(cfg.seed if seed is None else seed)
     streams = slot_streams(mesh)
     chunks = _chunks(sp, problems, order, cfg, mesh, geom=geom,
                      multi_geometry=multi_geometry, timings=timings)
@@ -240,7 +236,7 @@ def run_pass_batched(sp: ScenePaths, problems: Sequence[Problem],
     for chunk in chunks:
         params = chunk.params.with_hierarchy() if hierarchy else chunk.params
         ids = [problems[i].ref_image_id for i in chunk.indices]
-        keys = [R.fold_in(base_key, pid) for pid in ids]
+        keys = [problem_key(cfg, pid, seed) for pid in ids]
         log.info("batched pass B=%d ids=%s geom=%s prior=%s hier=%s "
                  "multi=%s path=%s", len(ids), ids, geom, planar_prior,
                  hierarchy, multi_geometry, "rect" if params.rect_ncc
@@ -248,59 +244,32 @@ def run_pass_batched(sp: ScenePaths, problems: Sequence[Problem],
         for pid in ids:
             sp.result_dir(pid).mkdir(parents=True, exist_ok=True)
 
-        def main_round(slot: int, lp: LoadedProblem):
+        def first(slot: int, lp: LoadedProblem):
             dev = mesh.devices[slot]
-            inputs = _adopt(lp.inputs, chunk.ready, dev)
-            seeds = {}
-            if geom:
-                seeds = dict(zip(("seed_normal_world", "seed_depth"),
-                                 _load_seed(sp, ids[slot], device=dev,
-                                            multi_geometry=multi_geometry)))
-            elif hierarchy:
-                seeds = dict(zip(("seed_normal_world", "seed_depth"),
-                                 _load_hierarchy_seed(sp, lp, ids[slot],
-                                                      dev)))
-            inputs = prepare_inputs(inputs, params)
-            return (inputs, *run_patchmatch(inputs, params, keys[slot],
-                                            **seeds))
+            seeds = load_seeds(sp, lp, ids[slot], geom=geom,
+                               hierarchy=hierarchy,
+                               multi_geometry=multi_geometry, device=dev)
+            return main_round(_adopt(lp.inputs, chunk.ready, dev), params,
+                              keys[slot], seeds)
 
-        outs = run_slots(mesh, main_round, chunk.lps, streams)
+        outs = run_slots(mesh, first, chunk.lps, streams)
 
         if planar_prior:
-            # the Delaunay prior of each problem on the host
-            # (ACMMP.cpp:904-1011), then the prior round of the problems
-            # that have one
-            priors = []
-            for lp, pid, (_, depth, _, cost, _) in zip(chunk.lps, ids, outs):
-                with timings.scope("prior_build"):
-                    dmin, dmax = lp.ref_cam.depth_range.numpy()
-                    pn, pw, mask, tris = build_planar_prior(
-                        lp.ref_cam, depth.cpu().numpy(), cost.cpu().numpy(),
-                        cfg.depth_min_scale * dmin,
-                        cfg.depth_max_scale * dmax, cfg.prior)
-                    write_image(sp.result_dir(pid) / "triangulation.png",
-                                draw_triangulation(lp.ref_image_np, tris))
-                priors.append((pn, pw, mask) if mask.any() else None)
+            # the priors on the host, one problem after another, then the
+            # prior round of the problems that have one
+            priors = [prior_build(sp, lp, pid, out[1], out[3], cfg, timings)
+                      for lp, pid, out in zip(chunk.lps, ids, outs)]
 
-            def prior_round(slot: int, item):
+            def second(slot: int, item):
                 out, prior = item
                 if prior is None:
                     return out
-                inputs, state = out[0], out[4]
-                t = lambda a: torch.from_numpy(a).to(mesh.devices[slot])
-                prior_inputs = dataclasses.replace(
-                    inputs, prior_normal=t(prior[0]), prior_w=t(prior[1]),
-                    prior_mask=t(prior[2]))
-                return (inputs, *run_patchmatch(
-                    prior_inputs, params.with_planar_prior(),
-                    R.fold_in(keys[slot], 1), prev_state=state))
+                return (out[0], *prior_round(out[0], out[4], prior, params,
+                                             keys[slot]))
 
-            outs = run_slots(mesh, prior_round, list(zip(outs, priors)),
-                             streams)
+            outs = run_slots(mesh, second, list(zip(outs, priors)), streams)
 
-        with timings.scope("write"):
-            for pid, (_, depth, normal_world, cost, _) in zip(ids, outs):
-                dmb.write_dmb(sp.depth_file(pid, geom=geom),
-                              depth.cpu().numpy())
-                dmb.write_dmb(sp.normal_file(pid), normal_world.cpu().numpy())
-                dmb.write_dmb(sp.cost_file(pid), cost.cpu().numpy())
+        for idx, pid, out in zip(chunk.indices, ids, outs):
+            write_results(sp, pid, *out[1:4], geom=geom, timings=timings)
+            if on_written is not None:
+                on_written(idx)

@@ -19,8 +19,9 @@ starts a gloo process group at ``tcp://<coordinator>``, or from torchrun's
 environment (``env://``) without ``--coordinator``; a rank runs on CUDA
 device ``(LOCAL_RANK or its rank) % device_count``.  The ranks exchange
 only files and barriers, so gloo serves, and several ranks may share one
-GPU.  A barrier that waits longer than ``--barrier-timeout`` seconds (a
-rank died) fails the run.
+GPU.  A barrier that waits longer than ``ACMMP_BARRIER_TIMEOUT_S``
+seconds (an environment variable; default 1800, gloo's own) fails the run,
+so a rank that died does not hang the others.
 ``convert`` turns a COLMAP sparse model (pinhole models or the SPHERE model
 id 11) into a scene folder, on the host (colmap2mvsnet_acm.py).
 """
@@ -44,7 +45,8 @@ def _init_distributed(args):
                              else "env://"),
         world_size=-1 if args.num_processes is None else args.num_processes,
         rank=-1 if args.process_id is None else args.process_id,
-        timeout=datetime.timedelta(seconds=args.barrier_timeout))
+        timeout=datetime.timedelta(seconds=float(os.environ.get(
+            "ACMMP_BARRIER_TIMEOUT_S", "1800"))))
     rank = dist.get_rank()
     if args.device == "cpu":
         return rank, "cpu"
@@ -120,9 +122,6 @@ def main(argv=None) -> int:
                         "MASTER_ADDR/MASTER_PORT environment)")
     r.add_argument("--num-processes", type=int, default=None)
     r.add_argument("--process-id", type=int, default=None)
-    r.add_argument("--barrier-timeout", type=float, default=1800.0,
-                   help="seconds a rank waits at a barrier before the run "
-                        "fails")
     r.set_defaults(fn=_reconstruct)
 
     c = sub.add_parser("convert", help="COLMAP sparse model -> scene folder")

@@ -6,12 +6,17 @@ planar-prior round, then ``geom_iterations`` geometric passes; finally all
 views are fused into a coloured point cloud.
 
 Passes run one problem after the other on one device, or in chunks over a
-mesh of device slots (``cfg.batch_problems``, ``pipeline/batch_runner``);
-a batched pass that fails is logged and run again serially.  Each (pass,
-view) that completes is recorded in the manifest, so ``skip_if_complete``
-resumes a run; a serial pass that fails is retried once on the same device
-and then the view is skipped (fusion and the later passes tolerate its
-missing files).
+mesh of device slots (``cfg.batch_problems``, ``pipeline/batch_runner``).
+When a batched pass fails, the failure is logged and the problems whose
+files it had not yet written run serially.  A problem that fails within
+its writes leaves some of its files rewritten, and its serial rerun may
+then read them as its seed, so the result can differ from a serial run's.
+A failed multi-geometry pass re-raises instead: it reads the depths it
+rewrites, and its outputs depend on the order.  Each (pass, view) that
+completes is recorded in the manifest, so ``skip_if_complete`` resumes a
+run; a serial pass that fails is retried once on the same device and then
+the view is skipped (fusion and the later passes tolerate its missing
+files).
 
 Several processes (the CLI's ``--distributed``, which starts a
 ``torch.distributed`` process group) split a scene round-robin: rank ``r``
@@ -241,18 +246,29 @@ def run_pipeline(root, cfg: PipelineConfig = PipelineConfig(), *,
                               "; retrying" if attempt == 0
                               else " twice; skipping the view")
 
-    def run_batched(order, pass_name, **kw) -> bool:
+    def run_batched(order, pass_name, **kw) -> list:
+        """Run ``order`` batched; returns the problems left for the serial
+        path: none, or after a failure those not yet written (a
+        multi-geometry pass re-raises instead)."""
+        written = set()
+
+        def on_written(i):
+            written.add(i)
+            mark_pass_complete(sp, pass_name, problems[i].ref_image_id)
+
         try:
             with timings.scope(pass_name):
                 run_pass_batched(sp, problems, order, cfg, mesh=mesh,
-                                 timings=timings, **kw)
+                                 timings=timings, on_written=on_written,
+                                 **kw)
         except Exception:
+            if kw.get("multi_geometry"):
+                raise
             log.exception("batched pass %s failed; falling back to serial "
-                          "execution", pass_name)
-            return False
-        for i in order:
-            mark_pass_complete(sp, pass_name, problems[i].ref_image_id)
-        return True
+                          "execution of its %d unwritten problems",
+                          pass_name, len(order) - len(written))
+            return [i for i in order if i not in written]
+        return []
 
     def run_all(tag, scale, **kw):
         pass_name = f"{tag}_s{scale}"
@@ -267,10 +283,10 @@ def run_pipeline(root, cfg: PipelineConfig = PipelineConfig(), *,
                          sp, pass_name, problems[i].ref_image_id))]
             if cfg.skip_if_complete:
                 log.info("%s: %d problems to run", pass_name, len(order))
-            if order and not (batched and run_batched(order, pass_name,
-                                                      **kw)):
-                for i in order:
-                    run_one(i, pass_name, **kw)
+            if batched and order:
+                order = run_batched(order, pass_name, **kw)
+            for i in order:
+                run_one(i, pass_name, **kw)
             if w + 1 < len(waves):
                 barrier(f"{pass_name} wave {w}")
         barrier(pass_name)

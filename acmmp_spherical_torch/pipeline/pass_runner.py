@@ -371,20 +371,87 @@ def _load_hierarchy_seed(sp: ScenePaths, lp: LoadedProblem, image_id: int,
     return normal, depth
 
 
+def load_seeds(sp: ScenePaths, lp: LoadedProblem, image_id: int, *,
+               geom: bool, hierarchy: bool, multi_geometry: bool,
+               device) -> dict:
+    """The seed fields of a geometric or hierarchy pass, as
+    ``run_patchmatch`` keywords; empty for a photometric pass."""
+    if geom:
+        fields = _load_seed(sp, image_id, multi_geometry=multi_geometry,
+                            device=device)
+    elif hierarchy:
+        fields = _load_hierarchy_seed(sp, lp, image_id, device)
+    else:
+        return {}
+    return dict(zip(("seed_normal_world", "seed_depth"), fields))
+
+
+def problem_key(cfg: PipelineConfig, image_id: int,
+                seed: Optional[int] = None):
+    """The pass key of a problem: ``fold_in(key(seed), image_id)``."""
+    return R.fold_in(R.key(cfg.seed if seed is None else seed), image_id)
+
+
+def main_round(inputs: PatchMatchInputs, params: PatchMatchParams, key,
+               seeds: dict):
+    """The pass's first round: (prepared inputs, depth, normal_world, cost,
+    state)."""
+    inputs = prepare_inputs(inputs, params)
+    return (inputs, *run_patchmatch(inputs, params, key, **seeds))
+
+
+def prior_build(sp: ScenePaths, lp: LoadedProblem, image_id: int, depth,
+                cost, cfg: PipelineConfig, timings: Timings):
+    """The Delaunay planar prior of the first round's fields, on the host
+    (ACMMP.cpp:904-1011), with ``triangulation.png`` written: (normal, w,
+    mask), or None when the prior is empty and the prior round is
+    skipped.  Timed as ``prior_build``."""
+    with timings.scope("prior_build"):
+        dmin, dmax = lp.ref_cam.depth_range.numpy()
+        prior_normal, prior_w, mask, tris = build_planar_prior(
+            lp.ref_cam, depth.cpu().numpy(), cost.cpu().numpy(),
+            cfg.depth_min_scale * dmin, cfg.depth_max_scale * dmax,
+            cfg.prior)
+        write_image(sp.result_dir(image_id) / "triangulation.png",
+                    draw_triangulation(lp.ref_image_np, tris))
+    return (prior_normal, prior_w, mask) if mask.any() else None
+
+
+def prior_round(inputs: PatchMatchInputs, state, prior,
+                params: PatchMatchParams, key):
+    """The second round with the planar prior (main.cpp:113-197), on the
+    first round's prepared inputs and state, drawing from ``fold_in(key,
+    1)``: (depth, normal_world, cost, state)."""
+    t = lambda a: torch.from_numpy(a).to(inputs.ref_image.device)
+    prior_inputs = dataclasses.replace(
+        inputs, prior_normal=t(prior[0]), prior_w=t(prior[1]),
+        prior_mask=t(prior[2]))
+    return run_patchmatch(prior_inputs, params.with_planar_prior(),
+                          R.fold_in(key, 1), prev_state=state)
+
+
+def write_results(sp: ScenePaths, image_id: int, depth, normal_world, cost,
+                  *, geom: bool, timings: Timings) -> None:
+    """Write the pass's depth, normal and cost ``.dmb`` files; timed as
+    ``write``."""
+    with timings.scope("write"):
+        dmb.write_dmb(sp.depth_file(image_id, geom=geom), depth.cpu().numpy())
+        dmb.write_dmb(sp.normal_file(image_id), normal_world.cpu().numpy())
+        dmb.write_dmb(sp.cost_file(image_id), cost.cpu().numpy())
+
+
 def process_problem(sp: ScenePaths, problems: Sequence[Problem], idx: int,
                     cfg: PipelineConfig, *, geom: bool = False,
                     planar_prior: bool = False, hierarchy: bool = False,
                     multi_geometry: bool = False, seed: Optional[int] = None,
                     device="cuda", timings: Optional[Timings] = None) -> None:
     """Run one pass for one problem and write its results (ProcessProblem
-    analog, main.cpp:73-210).  The pass key is ``fold_in(key(seed),
-    image_id)``; the planar-prior round reuses the first round's rectified
-    context and draws from ``fold_in(key, 1)``.  ``timings`` gets the
-    ``load``, ``prior_build`` and ``write`` scopes."""
+    analog, main.cpp:73-210): ``main_round``, then, with the planar prior,
+    ``prior_build`` and ``prior_round``, then ``write_results``.
+    ``timings`` gets the ``load``, ``prior_build`` and ``write`` scopes."""
     device = torch.device(device)
     timings = Timings() if timings is None else timings
-    problem = problems[idx]
-    image_id = problem.ref_image_id
+    image_id = problems[idx].ref_image_id
     sp.result_dir(image_id).mkdir(parents=True, exist_ok=True)
 
     with timings.scope("load"):
@@ -393,42 +460,19 @@ def process_problem(sp: ScenePaths, problems: Sequence[Problem], idx: int,
                                   device=device)
         if hierarchy:
             params = params.with_hierarchy()
-        seeds = {}
-        if geom:
-            seeds = dict(zip(("seed_normal_world", "seed_depth"), _load_seed(
-                sp, image_id, multi_geometry=multi_geometry, device=device)))
-        elif hierarchy:
-            seeds = dict(zip(("seed_normal_world", "seed_depth"),
-                             _load_hierarchy_seed(sp, lp, image_id, device)))
-    key = R.fold_in(R.key(cfg.seed if seed is None else seed), image_id)
+        seeds = load_seeds(sp, lp, image_id, geom=geom, hierarchy=hierarchy,
+                           multi_geometry=multi_geometry, device=device)
+    key = problem_key(cfg, image_id, seed)
     log.info("pass image=%08d size=%dx%d geom=%s prior=%s hier=%s multi=%s "
              "path=%s", image_id, lp.width, lp.height, geom, planar_prior,
              hierarchy, multi_geometry, "rect" if params.rect_ncc
              else "window" if params.fast_ncc else "exact")
-    inputs = prepare_inputs(lp.inputs, params)
-    depth, normal_world, cost, state = run_patchmatch(inputs, params, key,
-                                                      **seeds)
-
+    inputs, depth, normal_world, cost, state = main_round(lp.inputs, params,
+                                                          key, seeds)
     if planar_prior:
-        # the second round with the Delaunay planar prior (main.cpp:113-197)
-        with timings.scope("prior_build"):
-            dmin, dmax = lp.ref_cam.depth_range.numpy()
-            prior_normal, prior_w, mask, tris = build_planar_prior(
-                lp.ref_cam, depth.cpu().numpy(), cost.cpu().numpy(),
-                cfg.depth_min_scale * dmin, cfg.depth_max_scale * dmax,
-                cfg.prior)
-            write_image(sp.result_dir(image_id) / "triangulation.png",
-                        draw_triangulation(lp.ref_image_np, tris))
-        if mask.any():
-            t = lambda a: torch.from_numpy(a).to(device)
-            prior_inputs = dataclasses.replace(
-                inputs, prior_normal=t(prior_normal), prior_w=t(prior_w),
-                prior_mask=t(mask))
-            depth, normal_world, cost, state = run_patchmatch(
-                prior_inputs, params.with_planar_prior(), R.fold_in(key, 1),
-                prev_state=state)
-
-    with timings.scope("write"):
-        dmb.write_dmb(sp.depth_file(image_id, geom=geom), depth.cpu().numpy())
-        dmb.write_dmb(sp.normal_file(image_id), normal_world.cpu().numpy())
-        dmb.write_dmb(sp.cost_file(image_id), cost.cpu().numpy())
+        prior = prior_build(sp, lp, image_id, depth, cost, cfg, timings)
+        if prior is not None:
+            depth, normal_world, cost, state = prior_round(
+                inputs, state, prior, params, key)
+    write_results(sp, image_id, depth, normal_world, cost, geom=geom,
+                  timings=timings)

@@ -110,8 +110,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    per pass and round phase 9's; then ``fuse_all_views_sharded`` over the
    3 slots on phase 9's results must equal ``fuse_all_views``, and
    ``multichip_step`` on 8 synthetic problems (256x192, 3 sources, the
-   windowed path) over the 3 slots must equal the step on one slot bit for
-   bit.  The wall time
+   windowed path) over the 3 slots: once with its launches counted (both
+   ``ncc_window`` and ``ncc_window_geom`` must launch) and the first launch
+   of each at each operand shape in each slot held bit for bit against its
+   plain version, then again over the 3 slots and over one, all three
+   equal bit for bit.  The wall time
    beside phase 9's, the loads and the time waited for them (their
    overlap with device work) and the peak memory are printed;
 13. ``python -m acmmp_spherical_torch reconstruct --distributed`` as two
@@ -136,6 +139,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -1304,8 +1308,8 @@ def run_batched_phase(dev, sc, work, gt, serial):
     first launches checked, once timed; each run's files must equal phase
     9's byte for byte and its launches per pass and round phase 9's.  Then
     ``fuse_all_views_sharded`` over the slots on phase 9's results, and
-    ``multichip_step`` on a synthetic batch over the slots against one
-    slot."""
+    ``multichip_step`` on a synthetic batch over the slots, its launches
+    counted and checked, against one slot."""
     import shutil
 
     import numpy as np
@@ -1315,6 +1319,7 @@ def run_batched_phase(dev, sc, work, gt, serial):
     from acmmp_spherical_torch.io.scene import ScenePaths, read_pair_file
     from acmmp_spherical_torch.ops import rng as R
     from acmmp_spherical_torch.ops.fusion import fuse_all_views
+    from acmmp_spherical_torch.ops.kernels import _lib
     from acmmp_spherical_torch.parallel import (
         make_view_mesh, multichip_step, shard_batch_over_views,
     )
@@ -1376,7 +1381,9 @@ def run_batched_phase(dev, sc, work, gt, serial):
                              f"{serial['fused_points']}")
     del inputs, ref, got
 
-    # the view-parallel step over the slots against one slot
+    # the view-parallel step over the slots: once with its launches counted
+    # and each slot's first launch at each operand shape held against the
+    # plain version, then timed over the slots and over one slot
     mc = MULTICHIP_BATCH
     batch, params, mgt = make_synthetic_batch(
         mc["n"], width=mc["width"], height=mc["height"], n_src=mc["n_src"],
@@ -1384,6 +1391,31 @@ def run_batched_phase(dev, sc, work, gt, serial):
     # the windowed path (kernel 6, from every slot): the exact path's
     # per-tap launches take minutes under three threads
     params = dataclasses.replace(params, fast_ncc=True)
+    scopes = LaunchScopes()
+    shards = shard_batch_over_views(mesh, batch)
+    _lib.reset_launch_counts()
+    with checked_kernels(scopes):
+        checked_res = multichip_step(mesh, params)(shards, R.key(0))
+    torch.cuda.synchronize()
+    step_launches = dict(_lib.LAUNCHES)
+    if scopes.failures:
+        raise AssertionError("; ".join(scopes.failures))
+    step_checks = {}
+    for (_, _, slot, k, _), err in scopes.checks.items():
+        c = step_checks.setdefault(k, dict(shapes=0, max_abs_err=0.0,
+                                           slots=[]))
+        c["shapes"] += 1
+        c["max_abs_err"] = max(c["max_abs_err"], err)
+        if slot not in c["slots"]:
+            c["slots"].append(slot)
+    launched = sorted(k for k, v in step_launches.items() if v)
+    if (launched != ["ncc_window", "ncc_window_geom"]
+            or any(sorted(step_checks[k]["slots"]) != list(range(BATCH_SLOTS))
+                   for k in launched)):
+        raise AssertionError(f"multichip_step launched {step_launches}, "
+                             f"checked {step_checks}: each of ncc_window "
+                             "and ncc_window_geom must launch and be "
+                             "checked in every slot")
     steps = {}
     for n in (BATCH_SLOTS, 1):
         m = make_view_mesh(devices=[dev] * n)
@@ -1393,20 +1425,25 @@ def run_batched_phase(dev, sc, work, gt, serial):
                                         R.key(0))
         steps[n] = ([torch.cat(a) for a in zip(*res)],
                     time.perf_counter() - t0)
-    same = all(_same(a, b) for a, b in zip(steps[BATCH_SLOTS][0],
-                                           steps[1][0]))
+    checked_out = [torch.cat(a) for a in zip(*checked_res)]
+    same = all(_same(a, b) and _same(a, c) for a, b, c in zip(
+        steps[BATCH_SLOTS][0], steps[1][0], checked_out))
     d = steps[BATCH_SLOTS][0][0].cpu().numpy()
     mrel = float(np.median(np.abs(d - mgt) / mgt))
     log(f"phase 12: sharded fusion {serial['fused_points']} "
         f"points equal to fuse_all_views ({sharded_s:.2f} s against "
         f"{fuse_s:.2f} s); multichip_step on {mc['n']} problems "
-        f"{mc['width']}x{mc['height']}: {BATCH_SLOTS} slots "
+        f"{mc['width']}x{mc['height']}: launches {step_launches}, "
+        f"{sum(c['shapes'] for c in step_checks.values())} first-launch "
+        f"checks over {BATCH_SLOTS} slots bit-identical; {BATCH_SLOTS} slots "
         f"{steps[BATCH_SLOTS][1]:.2f} s, 1 slot {steps[1][1]:.2f} s, "
         f"bit-identical {same}, median rel depth err {mrel}")
     if not same or not np.isfinite(d).all() or not mrel < 0.2:
         raise AssertionError("multichip_step over the slots differs from "
                              "one slot, or its depth is off")
     out.update(fusion_s=fuse_s, sharded_fusion_s=sharded_s,
+               multichip=dict(launches=step_launches,
+                              plain_checks=step_checks),
                multichip_s={str(k): v[1] for k, v in steps.items()},
                multichip_median_rel_err=mrel, load_s=load, load_wait_s=wait)
     return out
@@ -1442,9 +1479,9 @@ def run_distributed_phase(sc, work, serial):
     procs = [subprocess.Popen(
         [sys.executable, "-c", RANK_SCRIPT, "reconstruct", str(root),
          "--distributed", "--coordinator", f"127.0.0.1:{port}",
-         "--num-processes", "2", "--process-id", str(r),
-         "--barrier-timeout", "300"],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+         "--num-processes", "2", "--process-id", str(r)],
+        cwd=ROOT, env=dict(os.environ, ACMMP_BARRIER_TIMEOUT_S="300"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(2)]
     try:
         outs = [p.communicate(timeout=600)[0] for p in procs]
@@ -1705,9 +1742,9 @@ def main() -> int:
     # phase 13: phase 11's scene by two ranks of reconstruct --distributed
     dpipe = run_distributed_phase(SPHERE_PIPELINE_SCENE, work, spipe)
     work_dir.cleanup()
-    for p_ in (pipe, spipe, bpipe["batched_checked"]):
+    for p_ in (pipe, spipe, bpipe["batched_checked"], bpipe["multichip"]):
         for key, c in p_["plain_checks"].items():
-            e = results[key.rsplit(" ", 1)[1]]
+            e = results[key.rsplit(" ", 1)[-1]]
             e["max_abs_err"] = max(e["max_abs_err"], c["max_abs_err"])
             e["pipeline_checks"] = e.get("pipeline_checks", 0) + c["shapes"]
 
@@ -1716,7 +1753,7 @@ def main() -> int:
              "window_sample")
     paths = (phot, geom, win, wgeom, samp, pipe, sphere["phot"],
              sphere["geom"], spipe, bpipe["batched_checked"],
-             bpipe["batched"], dpipe)
+             bpipe["batched"], bpipe["multichip"], dpipe)
     kernels = [dict(name=k, launches=sum(p["launches"][k] for p in paths),
                     **results[k]) for k in names]
     for k in kernels:

@@ -26,6 +26,9 @@
   to the fixture's count and accuracy: a few accept flips move them by
   several percent (the JAX package's serial and batched runs of the exact
   path fuse 495 and 461 points, the port's 414).
+* Fallback: when a batched pass fails after writing its first problem,
+  only the unwritten problems run serially; a failed multi-geometry pass
+  re-raises.
 * The launch counters lose no count when 4 threads add to them at once.
 
 Regenerate the fixture from the JAX package (CPU, Pallas interpreted):
@@ -213,6 +216,38 @@ def test_batched_pipeline_equals_serial(tmp_path, monkeypatch, one_thread):
                                 gt[v])["median_rel_err"]
         assert err < DEPTH_ERR_MAX, (v, err)
     assert got["accuracy"] > ON_SURFACE_MIN, got["accuracy"]
+
+
+def test_failed_batched_pass_reruns_only_unwritten(tmp_path, monkeypatch):
+    """A batched pass that fails after writing its first problem leaves the
+    other problems to the serial path; a failed multi-geometry pass
+    re-raises."""
+    from acmmp_spherical_torch.pipeline import batch_runner
+
+    root = tmp_path / "scene"
+    write_scene(root)
+    serial = []
+
+    def failing(sp, problems, order, cfg, *, on_written,
+                multi_geometry=False, **kw):
+        if multi_geometry:
+            raise RuntimeError("multi-geometry pass failed")
+        on_written(order[0])
+        raise RuntimeError("second chunk failed")
+
+    def process_problem(sp, problems, idx, cfg, *, geom=False, **kw):
+        serial.append((geom, idx))
+
+    monkeypatch.setattr(batch_runner, "run_pass_batched", failing)
+    monkeypatch.setattr(multiscale, "process_problem", process_problem)
+    with pytest.raises(RuntimeError, match="multi-geometry"):
+        multiscale.run_pipeline(root, PipelineConfig(batch_problems="on"),
+                                device="cpu",
+                                mesh=make_view_mesh(devices=["cpu"] * SLOTS))
+    assert serial == [(False, 1), (False, 2), (True, 1), (True, 2)]
+    manifest = json.loads(ScenePaths(root).manifest_file().read_text())
+    assert {k: sorted(v) for k, v in manifest.items()} == {
+        "photometric_s0": [0, 1, 2], "geom0_s0": [0, 1, 2]}
 
 
 def test_launch_counts_lose_nothing_across_threads():

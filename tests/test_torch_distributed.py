@@ -50,8 +50,8 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _reconstruct(scene, *extra):
-    env = dict(os.environ, OMP_NUM_THREADS="1")
+def _reconstruct(scene, *extra, env=()):
+    env = dict(os.environ, OMP_NUM_THREADS="1", **dict(env))
     return subprocess.Popen(
         [sys.executable, "-m", "acmmp_spherical_torch", "reconstruct",
          str(scene), "--device", "cpu", "--no-prior", *extra], cwd=REPO,
@@ -60,11 +60,11 @@ def _reconstruct(scene, *extra):
 
 def _ranks(scenes, timeout_s=TIMEOUT_S, barrier_timeout=None):
     port = _free_port()
-    extra = [] if barrier_timeout is None else [
-        "--barrier-timeout", str(barrier_timeout)]
+    env = {} if barrier_timeout is None else {
+        "ACMMP_BARRIER_TIMEOUT_S": str(barrier_timeout)}
     procs = [_reconstruct(scene, "--distributed", "--coordinator",
                           f"127.0.0.1:{port}", "--num-processes", "2",
-                          "--process-id", str(r), *extra)
+                          "--process-id", str(r), env=env)
              for r, scene in enumerate(scenes)]
     try:
         outs = [p.communicate(timeout=timeout_s)[0] for p in procs]

@@ -92,6 +92,7 @@ SCRIPT = textwrap.dedent("""
             2, *d.shape).contiguous()), p.with_geom(False), 1,
             seed_normal_world=n, seed_depth=d)[0]
         assert bool(torch.isfinite(d).all() and torch.isfinite(g).all())
+    import acmmp_spherical_torch.profile_batch  # noqa: F401
     import acmmp_spherical_torch.profile_pass  # noqa: F401
     from acmmp_spherical_torch import io, utils  # noqa: F401
     from acmmp_spherical_torch.ops import fusion, jbu  # noqa: F401
