@@ -11,12 +11,16 @@ filter), and one geometric-consistency pass (2 iterations) seeded from the
 photometric result, with every source view's own photometric pass (keys
 1000 + i) as its source depths; then the same two passes on the
 equirectangular ring at 1024x512 with 6 source views through the
-pole-rotated path (source depths from keys 2000 + i).  Prints one JSON line
-with the same keys (``metric``, ``value``, ``unit``, ``vs_baseline``,
-``geom_value``, ``sphere_value``, ``sphere_geom_value``, ``compile_s``).
-The sphere's depth error is reported over the latitude band that
-``LAT_CAP_DEG`` leaves and over the pole band separately.  Needs a CUDA
-device; there is no CPU fallback.
+pole-rotated path (source depths from keys 2000 + i).  Every pass runs
+twice: with both bf16 packs off (f32 taps and back-map) and with both on
+(the defaults of ``PatchMatchParams``).  Prints one JSON line with the same
+keys (``metric``, ``value``, ``unit``, ``vs_baseline``, ``geom_value``,
+``sphere_value``, ``sphere_geom_value``, ``compile_s``), which stay the f32
+passes', the median relative depth errors (``err``, ``geom_err``,
+``sphere_err``, ``sphere_geom_err``) and the packed passes' rates and errors
+under the same names with ``_pk``.  The sphere's depth error is reported
+over the latitude band that ``LAT_CAP_DEG`` leaves and over the pole band
+separately.  Needs a CUDA device; there is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -56,15 +60,16 @@ SPHERE_GOLDEN_SCENE = dict(width=128, height=64, n_src=3)
 
 
 def make_problem(width: int, height: int, n_src: int, device, *,
-                 focal: float, radius: float):
-    """A CubeRoom ring problem on the rectified path (reference bench.py
-    settings: host mirrors for the compute grid, live tiles, init window,
-    warp window and the attribution gate; both bf16 packs off).
-    Returns (inputs, params, ground-truth depths (V, H, W) and world
-    normals (V, H, W, 3), numpy)."""
+                 focal: float, radius: float, packs: bool = False,
+                 scene: CubeRoom = CubeRoom(), render=render_scene):
+    """A ring problem on the rectified path (reference bench.py settings:
+    host mirrors for the compute grid, live tiles, init window, warp window
+    and the attribution gate; both bf16 packs off unless ``packs``) in
+    ``scene``, rendered by ``render``.  Returns (inputs, params,
+    ground-truth depths (V, H, W) and world normals (V, H, W, 3), numpy)."""
     cams = make_ring_of_cameras(1 + n_src, width=width, height=height,
                                 focal=focal, radius=radius, device=device)
-    images, depths, normals = render_scene(cams, CubeRoom(), width, height)
+    images, depths, normals = render(cams, scene, width, height)
     src = stack_cameras(cams[1:])
     rhw = RT.rect_shape(height, width)
     if not RT.host_rectifiable(cams[0], src, rhw):
@@ -78,7 +83,7 @@ def make_problem(width: int, height: int, n_src: int, device, *,
         rect_init=iwin > 0, rect_init_win=iwin or 384,
         rect_warp_hw=RT.rect_warp_window(cams[0], src, rhw),
         rect_inv_attrib=RT.rect_inv_attrib_ok(cams[0], src, rhw),
-        rect_tap_pack=False, rect_backmap_pack=False)
+        rect_tap_pack=packs, rect_backmap_pack=packs)
     imgs = torch.as_tensor(images, device=device)
     inputs = PatchMatchInputs(
         ref_image=imgs[0], src_images=imgs[1:], ref_cam=cams[0], src_cams=src,
@@ -87,10 +92,12 @@ def make_problem(width: int, height: int, n_src: int, device, *,
     return inputs, params, depths, normals
 
 
-def make_sphere_problem(width: int, height: int, n_src: int, device):
+def make_sphere_problem(width: int, height: int, n_src: int, device, *,
+                        packs: bool = False):
     """An equirect CubeRoom ring problem on the pole-rotated rectified path
     (reference bench.py settings: the init window and the live-tile budget
-    from the host mirrors; both bf16 packs off).  Returns (inputs, params,
+    from the host mirrors; both bf16 packs off unless ``packs``).  Returns
+    (inputs, params,
     ground-truth radial depths (V, H, W) and world normals (V, H, W, 3),
     numpy)."""
     cams = make_ring_of_cameras(1 + n_src, model=SPHERE, width=width,
@@ -104,7 +111,7 @@ def make_sphere_problem(width: int, height: int, n_src: int, device):
         PatchMatchParams().with_depth_range(*cams[0].depth_range.tolist()),
         rect_ncc=True, rect_init=iwin > 0, rect_init_win=iwin or 384,
         sphere_live_n=SR.sphere_live_tile_count(cams[0]),
-        rect_tap_pack=False, rect_backmap_pack=False)
+        rect_tap_pack=packs, rect_backmap_pack=packs)
     imgs = torch.as_tensor(images, device=device)
     inputs = PatchMatchInputs(
         ref_image=imgs[0], src_images=imgs[1:], ref_cam=cams[0], src_cams=src,
@@ -205,50 +212,79 @@ def source_depths(inputs: PatchMatchInputs, params, key_base: int = 1000):
     return torch.stack(depths)
 
 
-def sphere_section(dev, reps: int, compile_s: dict):
-    """The spherical passes of the bench (equirect ring 1024x512x6src,
-    pole-rotated path): the photometric pass (key 0 warm, 1..reps timed)
-    and the geometric pass seeded from its last run (key 50 warm, 51.. timed)
-    with each view's own photometric pass (keys 2000 + i) as its source
-    depths.  Returns the two lists of pass times (s)."""
-    W, H = SPHERE_BENCH_SCENE["width"], SPHERE_BENCH_SCENE["height"]
-    inputs, params, gt, _ = make_sphere_problem(**SPHERE_BENCH_SCENE,
-                                                device=dev)
+def timed_passes(fn, reps: int, key0: int):
+    """Pass times (s) of ``fn(key0 + 1 + r)`` for r < ``reps`` after a warm
+    ``fn(key0)``; returns (warm seconds, times, the last output)."""
     t0 = time.perf_counter()
-    run_patchmatch(inputs, params, 0)
+    fn(key0)
     torch.cuda.synchronize()
-    compile_s["sphere"] = round(time.perf_counter() - t0, 1)
+    warm = round(time.perf_counter() - t0, 1)
     times = []
     for r in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = run_patchmatch(inputs, params, r + 1)
+        out = fn(key0 + 1 + r)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    return warm, times, out
+
+
+def median_rel_err(depth, gt) -> float:
+    """Median relative depth error inside an 8-pixel border."""
+    g = gt[8:-8, 8:-8]
+    return float(np.median(np.abs(depth.cpu().numpy()[8:-8, 8:-8] - g) / g))
+
+
+def pinhole_section(dev, reps: int, packs: bool):
+    """The 1024x768x8src photometric pass (key 0 warm, 1..reps timed) and
+    the geometric pass seeded from its last run (key 100 warm, 101..
+    timed) with each view's own photometric pass (keys 1000 + i) as its
+    source depths, as root bench.py:194-248.  Returns {times, err,
+    geom_times, geom_err, compile_s}."""
+    inputs, params, gt, _ = make_problem(**BENCH_SCENE, device=dev,
+                                         packs=packs)
+    warm, times, out = timed_passes(
+        lambda k: run_patchmatch(inputs, params, k), reps, 0)
+    geom_inputs = dataclasses.replace(
+        inputs, src_depths=source_depths(inputs, params))
+    geom_params = params.with_geom(multi_geometry=False)
+    seed = dict(seed_normal_world=out[1], seed_depth=out[0])
+    gwarm, gtimes, gout = timed_passes(
+        lambda k: run_patchmatch(geom_inputs, geom_params, k, **seed), reps,
+        100)
+    res = dict(times=times, err=median_rel_err(out[0], gt[0]),
+               geom_times=gtimes, geom_err=median_rel_err(gout[0], gt[0]),
+               compile_s={"photometric": warm, "geom": gwarm})
+    print(f"[bench] packs={packs} {res}", file=sys.stderr)
+    return res
+
+
+def sphere_section(dev, reps: int, packs: bool):
+    """The spherical passes of the bench (equirect ring 1024x512x6src,
+    pole-rotated path), as root bench.py:250-357: the photometric pass (key
+    0 warm, 1..reps timed) and the geometric pass seeded from its last run
+    (key 50 warm, 51.. timed) with each view's own photometric pass (keys
+    2000 + i) as its source depths.  Returns {times, err, geom_times,
+    geom_err, compile_s}, the errors over the latitude band."""
+    inputs, params, gt, _ = make_sphere_problem(**SPHERE_BENCH_SCENE,
+                                                device=dev, packs=packs)
+    warm, times, out = timed_passes(
+        lambda k: run_patchmatch(inputs, params, k), reps, 0)
     err = sphere_band_errors(out[0].cpu().numpy(), gt[0], inputs.ref_cam)
-    print(f"[bench] sphere {W}x{H} init_win={params.rect_init_win} "
-          f"live_n={params.sphere_live_n} pass times: "
-          f"{['%.3f' % t for t in times]}; median rel depth err {err}",
-          file=sys.stderr)
     geom_inputs = dataclasses.replace(inputs, src_depths=source_depths(
         inputs, params, key_base=2000))
     geom_params = params.with_geom(multi_geometry=False)
     seed = dict(seed_normal_world=out[1], seed_depth=out[0])
-    t0 = time.perf_counter()
-    run_patchmatch(geom_inputs, geom_params, 50, **seed)
-    torch.cuda.synchronize()
-    compile_s["sphere_geom"] = round(time.perf_counter() - t0, 1)
-    gtimes = []
-    for r in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        gout = run_patchmatch(geom_inputs, geom_params, 51 + r, **seed)
-        torch.cuda.synchronize()
-        gtimes.append(time.perf_counter() - t0)
+    gwarm, gtimes, gout = timed_passes(
+        lambda k: run_patchmatch(geom_inputs, geom_params, k, **seed), reps,
+        50)
     gerr = sphere_band_errors(gout[0].cpu().numpy(), gt[0], inputs.ref_cam)
-    print(f"[bench] sphere geom pass times: {['%.3f' % t for t in gtimes]}; "
-          f"median rel depth err {gerr}", file=sys.stderr)
-    return times, gtimes
+    print(f"[bench] sphere packs={packs} init_win={params.rect_init_win} "
+          f"live_n={params.sphere_live_n} pass times: {times}, {err}; geom "
+          f"pass times {gtimes}, {gerr}", file=sys.stderr)
+    return dict(times=times, err=err["band"], geom_times=gtimes,
+                geom_err=gerr["band"],
+                compile_s={"sphere": warm, "sphere_geom": gwarm})
 
 
 def main() -> None:
@@ -258,69 +294,31 @@ def main() -> None:
                          BENCH_SCENE["n_src"], 3)
     dev = torch.device("cuda", 0)
     print(f"[bench] device: {torch.cuda.get_device_name(0)}", file=sys.stderr)
-    t0 = time.perf_counter()
-    inputs, params, gt, _ = make_problem(**BENCH_SCENE, device=dev)
-    print(f"[bench] scene setup {time.perf_counter() - t0:.1f}s; "
-          f"comp_hw={params.rect_comp_hw} live_n={params.rect_live_n} "
-          f"init_win={params.rect_init_win} warp_hw={params.rect_warp_hw}",
-          file=sys.stderr)
-
-    t0 = time.perf_counter()
-    run_patchmatch(inputs, params, 0)          # kernel build + first pass
-    torch.cuda.synchronize()
-    compile_s = {"photometric": round(time.perf_counter() - t0, 1)}
-    times = []
-    for r in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = run_patchmatch(inputs, params, r + 1)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    depth = out[0].cpu().numpy()
-    g = gt[0][8:-8, 8:-8]
-    rel = np.abs(depth[8:-8, 8:-8] - g) / g
-    print(f"[bench] pass times: {['%.3f' % t for t in times]}; "
-          f"median rel depth err {np.median(rel):.4f}", file=sys.stderr)
-    value = 1.0 / min(times)
-
-    # geometric pass (reference main.cpp:436-446), seeded from the last
-    # photometric pass (key 3), as root bench.py:194-248
-    t0 = time.perf_counter()
-    geom_inputs = dataclasses.replace(inputs,
-                                      src_depths=source_depths(inputs, params))
-    torch.cuda.synchronize()
-    print(f"[bench] per-view photometric seeds: "
-          f"{time.perf_counter() - t0:.1f}s for {n_src} views", file=sys.stderr)
-    geom_params = params.with_geom(multi_geometry=False)
-    seed = dict(seed_normal_world=out[1], seed_depth=out[0])
-    t0 = time.perf_counter()
-    run_patchmatch(geom_inputs, geom_params, 100, **seed)
-    torch.cuda.synchronize()
-    compile_s["geom"] = round(time.perf_counter() - t0, 1)
-    gtimes = []
-    for r in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        gout = run_patchmatch(geom_inputs, geom_params, 101 + r, **seed)
-        torch.cuda.synchronize()
-        gtimes.append(time.perf_counter() - t0)
-    grel = np.abs(gout[0].cpu().numpy()[8:-8, 8:-8] - g) / g
-    print(f"[bench] geom pass times: {['%.3f' % t for t in gtimes]}; "
-          f"median rel depth err {np.median(grel):.4f}", file=sys.stderr)
-
-    # the spherical operating point, as root bench.py:250-357
-    sph = sphere_section(dev, reps, compile_s)
+    res, compile_s = {}, {}
+    for packs, tag in ((False, ""), (True, "_pk")):
+        pin = pinhole_section(dev, reps, packs)
+        sph = sphere_section(dev, reps, packs)
+        if not packs:
+            compile_s = {**pin["compile_s"], **sph["compile_s"]}
+        res.update({
+            "value" + tag: round(1.0 / min(pin["times"]), 4),
+            "err" + tag: pin["err"],
+            "geom_value" + tag: round(1.0 / min(pin["geom_times"]), 4),
+            "geom_err" + tag: pin["geom_err"],
+            "sphere_value" + tag: round(1.0 / min(sph["times"]), 4),
+            "sphere_err" + tag: sph["err"],
+            "sphere_geom_value" + tag: round(1.0 / min(sph["geom_times"]), 4),
+            "sphere_geom_err" + tag: sph["geom_err"]})
+    value = res["value"]
     print(json.dumps({
         "metric": "depth_maps_per_s_per_chip",
-        "value": round(value, 4),
+        "value": value,
         "unit": f"{W}x{H}x{n_src}src photometric passes/s",
         "vs_baseline": round(value / BASELINE_PASSES_PER_S, 4),
-        "geom_value": round(1.0 / min(gtimes), 4),
         "geom_unit": f"{W}x{H}x{n_src}src geometric passes/s",
-        "sphere_value": round(1.0 / min(sph[0]), 4),
         "sphere_unit": "1024x512x6src spherical photometric passes/s",
-        "sphere_geom_value": round(1.0 / min(sph[1]), 4),
         "sphere_geom_unit": "1024x512x6src spherical geometric passes/s",
+        **res,
         "compile_s": compile_s,
     }))
 

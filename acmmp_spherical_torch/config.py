@@ -7,8 +7,10 @@ either side convert with ``PatchMatchParams(**dataclasses.asdict(other))``
 (``interop.params``).  Knobs whose code paths are not ported yet are kept as
 fields; the pass raises ``NotImplementedError`` on them
 (``ops/propagate._check_params``).  The bf16 packs (``rect_tap_pack``,
-``rect_backmap_pack``) are TPU gather levers the port does not implement: it
-samples taps and maps costs back in f32 whatever they say.
+``rect_backmap_pack``, both on by default as in the reference) take effect
+as there: packed taps round the source values the rectified kernel samples
+to bf16, the packed back-map rounds the mapped-back costs
+(``ops/kernels/ncc_rect.py``).
 """
 
 from __future__ import annotations

@@ -3,14 +3,14 @@
 //
 // Replaces: acmmp_spherical_tpu/ops/pallas/ncc_rect.py::_rect_kernel (:110),
 // launched by run_rect_kernel (:614), photometric and with_geom variants,
-// rect_tap_pack=False.  Per tile and candidate the kernel places a source
-// window at the tile-min of x - clip(D, dlo, dhi) (128-aligned, clamped),
-// samples the taps (11x11 at stride 2 by default) bilinearly in x on the
-// tap's own row at x + dx - (D + A dx + B dy), rejects taps outside
-// [0, win_w - 2] of the window or on a SENTINEL neighbour, checks the centre
-// sample and D > 0, and returns 1 - NCC of the bilateral-weighted moments,
-// clamped to [0, cost_max].  These per-tile rules are part of the algorithm
-// and are kept exactly.
+// rect_tap_pack False and True (kTapPack, below).  Per tile and candidate
+// the kernel places a source window at the tile-min of x - clip(D, dlo, dhi)
+// (128-aligned, clamped), samples the taps (11x11 at stride 2 by default)
+// bilinearly in x on the tap's own row at x + dx - (D + A dx + B dy),
+// rejects taps outside [0, win_w - 2] of the window or on a SENTINEL
+// neighbour, checks the centre sample and D > 0, and returns 1 - NCC of the
+// bilateral-weighted moments, clamped to [0, cost_max].  These per-tile
+// rules are part of the algorithm and are kept exactly.
 //
 // What bounds it on the H100.  A C=9 call at the bench point (S=8, 960 live
 // tiles, 36 taps) is ~2.5 G (candidate, pixel, tap) evaluations of a
@@ -72,6 +72,22 @@
 // floored source column on the pixel's own row -- is not SENTINEL, else
 // geom_max_cost.  The TPU kernel double-buffers a 24 x win_w disparity
 // window by DMA; here it is one global load per (candidate, pixel).
+//
+// Packed taps (kTapPack, params.rect_tap_pack, the reference's default):
+// the Pallas kernel reads both bilinear x-neighbours of a tap as one bf16
+// pair word (pack_ab of the window and its +1 lane roll, ncc_rect.py:297-
+// 306, unpacked at :257), which rounds every source value that a tap or the
+// centre check samples to bf16 and changes nothing else: the reference
+// side, the interpolation, the SENTINEL test and the sdisp read stay f32.
+// So kTapPack rounds each loaded source value (round to nearest even on the
+// bits, NaN -> 0x7FC0 with its sign, as ops/kernels/ncc_rect.py's
+// _to_bf16_bits) and runs the f32 kernel on it: the plain version rounds
+// the whole frame instead, bit-identical.  One operand serves pinhole and
+// sphere frames alike.  The cost is about 12 more issued instructions per
+// (candidate, pixel, tap) in a loop bound by instruction issue: 42-43%
+// slower than the f32 instantiation at C=9 on an NVIDIA H100 80GB HBM3 at
+// 700 W (PERF.md §6); rounding the frame once per context instead is the
+// queued redesign.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -132,13 +148,22 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
+// A loaded source value: rounded to bf16 (kept in an f32) with kTapPack.
+template <bool kTapPack>
+__device__ __forceinline__ float src_value(float v) {
+  if (!kTapPack) return v;
+  const uint32_t u = __float_as_uint(v);
+  const uint32_t rne = (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
+  return __uint_as_float(isnan(v) ? (u & 0x80000000u) | 0x7FC00000u : rne);
+}
+
 __device__ __forceinline__ int floor_to_int(float v) {
   // clamp before the cast so far-off values stay defined
   return (int)fminf(fmaxf(floorf(v), -1073741824.0f), 1073741824.0f);
 }
 
 // One chunk of CB candidates, c0 .. c0 + CB - 1, over all row groups.
-template <bool kGeom, int kNOff, int kRad, int kInc, int CB>
+template <bool kGeom, bool kTapPack, int kNOff, int kRad, int kInc, int CB>
 __device__ __forceinline__ void run_chunk(const Args& a, const Block& b,
                                           int c0) {
   const int warp = b.tid >> 5, lane = b.tid & 31;
@@ -209,7 +234,8 @@ __device__ __forceinline__ void run_chunk(const Args& a, const Block& b,
       int xi = 0;
       if (fabsf(xf - mid_c) <= half_w) {
         xi = (int)xf;
-        const float g0 = src_row[xi], g1 = src_row[xi + 1];
+        const float g0 = src_value<kTapPack>(src_row[xi]);
+        const float g1 = src_value<kTapPack>(src_row[xi + 1]);
         ok = g0 > kSentinelThresh && g1 > kSentinelThresh;
       }
       ok = ok && (D > 0.0f) && valid;
@@ -269,7 +295,8 @@ __device__ __forceinline__ void run_chunk(const Args& a, const Block& b,
             const float xf = floorf(xsrc);
             const bool inwin = fabsf(xf - mid[j]) <= half_w;
             const float* p = tap_row + (inwin ? __float2int_rz(xf) : 0);
-            const float g0 = __ldg(p), g1 = __ldg(p + 1);
+            const float g0 = src_value<kTapPack>(__ldg(p));
+            const float g1 = src_value<kTapPack>(__ldg(p + 1));
             const bool ok =
                 inwin && g0 > kSentinelThresh && g1 > kSentinelThresh;
             const float v = g0 + (g1 - g0) * (xsrc - xf);
@@ -306,18 +333,18 @@ __device__ __forceinline__ void run_chunk(const Args& a, const Block& b,
 }
 
 // run_chunk for a chunk of cb <= CB candidates
-template <bool kGeom, int kNOff, int kRad, int kInc, int CB>
+template <bool kGeom, bool kTapPack, int kNOff, int kRad, int kInc, int CB>
 __device__ __forceinline__ void dispatch_chunk(const Args& a, const Block& b,
                                                int c0, int cb) {
   if (cb == CB) {
-    run_chunk<kGeom, kNOff, kRad, kInc, CB>(a, b, c0);
+    run_chunk<kGeom, kTapPack, kNOff, kRad, kInc, CB>(a, b, c0);
   } else if constexpr (CB > 1) {
-    dispatch_chunk<kGeom, kNOff, kRad, kInc, CB - 1>(a, b, c0, cb);
+    dispatch_chunk<kGeom, kTapPack, kNOff, kRad, kInc, CB - 1>(a, b, c0, cb);
   }
 }
 
 // kNOff == 0: the tap pattern (radius, increment) is read at run time.
-template <bool kGeom, int kNOff, int kRad, int kInc>
+template <bool kGeom, bool kTapPack, int kNOff, int kRad, int kInc>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 rect_ncc_kernel(const __grid_constant__ Args a) {
   extern __shared__ float smem[];
@@ -405,20 +432,30 @@ rect_ncc_kernel(const __grid_constant__ Args a) {
     const int rem = a.C - c0;
     const int n_chunks = (rem + kChunk - 1) / kChunk;
     const int cb = (rem + n_chunks - 1) / n_chunks;
-    dispatch_chunk<kGeom, kNOff, kRad, kInc, kChunk>(a, b, c0, cb);
+    dispatch_chunk<kGeom, kTapPack, kNOff, kRad, kInc, kChunk>(a, b, c0, cb);
     c0 += cb;
   }
 }
 
+template <bool kGeom, bool kTapPack>
+void launch_pattern(const Args& a, cudaStream_t stream) {
+  const int smem = 3 * (kTileH + 2 * a.radius) * kBW * (int)sizeof(float);
+  const dim3 grid(a.N, a.S);
+  if (a.radius == 5 && a.increment == 2)   // the default 11x11 stride-2
+    rect_ncc_kernel<kGeom, kTapPack, 6, 5, 2>
+        <<<grid, kThreads, smem, stream>>>(a);
+  else
+    rect_ncc_kernel<kGeom, kTapPack, 0, 0, 0>
+        <<<grid, kThreads, smem, stream>>>(a);
+}
+
 template <bool kGeom>
-int launch_rect_ncc(const Args& a, cudaStream_t stream) {
+int launch_rect_ncc(const Args& a, int tap_pack, cudaStream_t stream) {
   if (a.N > 0 && a.S > 0) {
-    const int smem = 3 * (kTileH + 2 * a.radius) * kBW * (int)sizeof(float);
-    const dim3 grid(a.N, a.S);
-    if (a.radius == 5 && a.increment == 2)   // the default 11x11 stride-2
-      rect_ncc_kernel<kGeom, 6, 5, 2><<<grid, kThreads, smem, stream>>>(a);
+    if (tap_pack)
+      launch_pattern<kGeom, true>(a, stream);
     else
-      rect_ncc_kernel<kGeom, 0, 0, 0><<<grid, kThreads, smem, stream>>>(a);
+      launch_pattern<kGeom, false>(a, stream);
   }
   return (int)cudaGetLastError();
 }
@@ -428,19 +465,21 @@ int launch_rect_ncc(const Args& a, cudaStream_t stream) {
 // srow (S, 128) f32; tile_oy, tile_ox (S, N) int32 storage-frame origins;
 // rect_ref, rect_src (S, Hp, Wp) f32 padded frames; D (C, S, 8N, 128) f32;
 // AB (C, S, 8N, 128) bf16 pair words; fwd_valid (S, 8N, 128) f32;
-// out (C, S, 8N, 128) f32.  radius <= 8, at most 64 taps.
+// out (C, S, 8N, 128) f32.  radius <= 8, at most 64 taps.  tap_pack != 0:
+// the packed-tap variant.
 extern "C" int acmmp_rect_ncc(const float* srow, const int32_t* tile_oy,
                               const int32_t* tile_ox, const float* rect_ref,
                               const float* rect_src, const float* D,
                               const uint32_t* AB, const float* fwd_valid,
                               float* out, int C, int S, int N, int Hp, int Wp,
                               int win_w, int radius, int increment,
-                              float inv_2sc, float clampv, float cost_max,
-                              double inv_2ss, cudaStream_t stream) {
+                              int tap_pack, float inv_2sc, float clampv,
+                              float cost_max, double inv_2ss,
+                              cudaStream_t stream) {
   const Args a{srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
                out, nullptr, nullptr, C, S, N, Hp, Wp, win_w, radius,
                increment, inv_2sc, clampv, cost_max, 0.0f, inv_2ss};
-  return launch_rect_ncc<false>(a, stream);
+  return launch_rect_ncc<false>(a, tap_pack, stream);
 }
 
 // The with_geom variant: also sdisp (S, Hp, Wp) f32 in and the geometric
@@ -453,11 +492,11 @@ extern "C" int acmmp_rect_ncc_geom(const float* srow, const int32_t* tile_oy,
                                    float* out, const float* sdisp, float* gout,
                                    int C, int S, int N, int Hp, int Wp,
                                    int win_w, int radius, int increment,
-                                   float inv_2sc, float clampv,
+                                   int tap_pack, float inv_2sc, float clampv,
                                    float cost_max, float geom_max,
                                    double inv_2ss, cudaStream_t stream) {
   const Args a{srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
                out, sdisp, gout, C, S, N, Hp, Wp, win_w, radius, increment,
                inv_2sc, clampv, cost_max, geom_max, inv_2ss};
-  return launch_rect_ncc<true>(a, stream);
+  return launch_rect_ncc<true>(a, tap_pack, stream);
 }

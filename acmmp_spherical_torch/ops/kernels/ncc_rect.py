@@ -12,9 +12,19 @@ transport's plain version is ``coefficient_tables`` (the reference's XLA
 pre-step in plain torch) followed by ``warp_transport_plain`` (the masked
 gather the Pallas kernel computes).  A and B ride as one bf16 pair word
 (``pack_ab``): the reference applies that rounding unconditionally, so it is
-part of the algorithm.  Taps are sampled in f32 and costs map back in f32
-(the reference's ``rect_tap_pack``/``rect_backmap_pack`` bf16 levers are not
-ported).
+part of the algorithm.
+
+The reference's two bf16 packs, both on by default, take effect here as
+there.  ``params.rect_tap_pack``: the Pallas kernel reads both bilinear
+x-neighbours of a tap as one bf16 pair word, which rounds every source value
+a tap or the centre check samples to bf16 (round to nearest even) and
+changes nothing else -- the reference side and the with_geom disparity
+window stay f32.  So the packed kernel is the f32 kernel on a source frame
+rounded to bf16 (``round_bf16``); kernel 1 rounds each value it loads, the
+plain version rounds the frame.  ``params.rect_backmap_pack`` (C > 1): cost
+pairs ride one bf16 pair word through the back-map gather, which rounds
+every mapped-back cost (the geometric one too) to bf16; the fill of
+unclaimed pixels stays exact f32.
 """
 
 from __future__ import annotations
@@ -41,6 +51,13 @@ def _to_bf16_bits(x: torch.Tensor) -> torch.Tensor:
     u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     rne = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) & 0xFFFF
     return torch.where(torch.isnan(x), ((u >> 16) & 0x8000) | 0x7FC0, rne)
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 by ``_to_bf16_bits``' rule, as f32."""
+    bits = _to_bf16_bits(x) << 16
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(
+        torch.int32).view(torch.float32)
 
 
 def pack_ab(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -179,7 +196,9 @@ def rect_ncc_plain(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB,
     """Plain torch kernel 1: loops over candidates and taps and keeps only
     the six running sums per candidate, never a (C, S, taps, 8N, 128)
     tensor.  Same per-tile rules, weight formula and summation order as the
-    Pallas kernel (f32 taps).  With ``sdisp`` (the with_geom variant) also
+    Pallas kernel; with ``params.rect_tap_pack`` the source values it
+    samples are rounded to bf16 (``round_bf16`` of the frame), as the
+    reference's packed taps are.  With ``sdisp`` (the with_geom variant) also
     the geometric cost: ``min(geom_max_cost, |D - sdisp| * srow[4])`` with
     sdisp read at the centre tap's source column, ``geom_max_cost`` where
     the centre is invalid or sdisp is SENTINEL; returns (cost, geom)."""
@@ -219,7 +238,8 @@ def rect_ncc_plain(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB,
     dlo = srow[:, 0].reshape(S, 1, 1, 1)
     dhi = srow[:, 1].reshape(S, 1, 1, 1)
     xg = ox.to(torch.float32) + ll.to(torch.float32)
-    src_flat = rect_src.reshape(S, -1)
+    src_flat = (round_bf16(rect_src) if params.rect_tap_pack
+                else rect_src).reshape(S, -1)
     out = torch.empty_like(D)
     gout = None if sdisp is None else torch.empty_like(D)
     for c in range(C):
@@ -283,7 +303,9 @@ def rect_ncc(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
              params: PatchMatchParams, sdisp=None):
     """Kernel 1 (csrc/rect_ncc.cu) on CUDA tensors; the plain version on CPU
     tensors.  Returns the (C, S, 8N, 128) cost planes; with ``sdisp`` (S, Hp,
-    Wp) the with_geom variant, returning (cost, geom) planes."""
+    Wp) the with_geom variant, returning (cost, geom) planes.  With
+    ``params.rect_tap_pack`` the packed-tap variant runs, counted under
+    ``rect_ncc_pk`` / ``rect_ncc_geom_pk``."""
     if D.device.type == "cpu":
         return rect_ncc_plain(srow, tile_oy, tile_ox, rect_ref, rect_src, D,
                               AB, fwd_valid, params, sdisp)
@@ -311,14 +333,16 @@ def rect_ncc(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
     common = (srow.data_ptr(), tile_oy.data_ptr(), tile_ox.data_ptr(),
               rect_ref.data_ptr(), rect_src.data_ptr(), D.data_ptr(),
               AB.data_ptr(), fwd_valid.data_ptr(), out.data_ptr())
-    shape = (C, S, N, Hp, Wp, win_w, r, params.radius_increment)
+    pack = bool(params.rect_tap_pack)
+    shape = (C, S, N, Hp, Wp, win_w, r, params.radius_increment, int(pack))
+    suffix = "_pk" if pack else ""
     if sdisp is None:
         with torch.cuda.device(dev):
             err = lib.acmmp_rect_ncc(*common, *shape, inv_2sc, clampv,
                                      params.cost_max, inv_2ss,
                                      _lib.stream_ptr(out))
-        _lib.check(err, "rect_ncc")
-        _lib.count_launch("rect_ncc")
+        _lib.check(err, "rect_ncc" + suffix)
+        _lib.count_launch("rect_ncc" + suffix)
         return out
     _lib.require(sdisp, "sdisp", torch.float32, (S, Hp, Wp), dev)
     gout = torch.empty_like(out)
@@ -327,8 +351,8 @@ def rect_ncc(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
             *common, sdisp.data_ptr(), gout.data_ptr(), *shape, inv_2sc,
             clampv, params.cost_max, params.geom_max_cost, inv_2ss,
             _lib.stream_ptr(out))
-    _lib.check(err, "rect_ncc_geom")
-    _lib.count_launch("rect_ncc_geom")
+    _lib.check(err, "rect_ncc_geom" + suffix)
+    _lib.count_launch("rect_ncc_geom" + suffix)
     return out, gout
 
 
@@ -336,14 +360,19 @@ def rect_ncc(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
 # the batched evaluation around the kernels
 # ---------------------------------------------------------------------------
 
-def backmap(cost, maps, out_hw, fill):
+def backmap(cost, maps, out_hw, fill, pack: bool = False):
     """(C, S, 8N, 128) cost planes -> (C, S, H, Wg) through ``bwd_cidx``;
-    pixels without a claimed rect pixel read ``fill``."""
+    pixels without a claimed rect pixel read ``fill``.  ``pack``
+    (``params.rect_backmap_pack``) with C > 1: the mapped-back costs are
+    rounded to bf16, which is what the reference's pair-packed gather and
+    unpack compute (its zero pad of an odd C is never read)."""
     C, S = cost.shape[:2]
     H, Wg = out_hw
     flat = cost.reshape(C, S, -1)
     idx = maps.bwd_cidx[None].expand(C, S, H * Wg)
     out = torch.gather(flat, 2, idx).reshape(C, S, H, Wg)
+    if pack and C > 1:
+        out = round_bf16(out)
     return torch.where(maps.bwd_valid[None], out, torch.full_like(out, fill))
 
 
@@ -360,10 +389,11 @@ def rect_batched_ncc(rect: RectContext, normals, ws, params: PatchMatchParams,
     D, AB = coefficient_transport(rect, maps, normals, ws)
     args = (rect.srow, rect.tile_oy, rect.tile_ox, rect.rect_ref,
             rect.rect_src, D, AB, maps.fwd_valid, params)
+    pack = params.rect_backmap_pack
     if not with_geom:
-        return backmap(rect_ncc(*args), maps, (H, Wg), params.cost_max)
+        return backmap(rect_ncc(*args), maps, (H, Wg), params.cost_max, pack)
     if rect.rect_sdisp is None:
         raise ValueError("with_geom needs the context's rect_sdisp")
     cost, geom = rect_ncc(*args, sdisp=rect.rect_sdisp)
-    return (backmap(cost, maps, (H, Wg), params.cost_max),
-            backmap(geom, maps, (H, Wg), params.geom_max_cost))
+    return (backmap(cost, maps, (H, Wg), params.cost_max, pack),
+            backmap(geom, maps, (H, Wg), params.geom_max_cost, pack))

@@ -22,7 +22,9 @@ rotated pixel), the hoisted target rays and the displacement bounds
 ``srow``.  ``sphere_batched_ncc`` computes the affine coefficients in plain
 torch, gathers them onto the compact pixels (``warp_transport_plain``, the
 reference's XLA gather) and evaluates the cost with ``rect_ncc`` -- the
-CUDA kernel on CUDA tensors, its plain version on CPU ones.
+CUDA kernel on CUDA tensors, its plain version on CPU ones -- then maps it
+back with ``backmap``; the two bf16 packs (``rect_tap_pack``,
+``rect_backmap_pack``) apply as on the pinhole path.
 """
 
 from __future__ import annotations
@@ -376,10 +378,12 @@ def sphere_batched_ncc(ctx: SphereRectContext, normals, ws, params, *,
         maps.fwd_valid)
     args = (ctx.srow, ctx.tile_oy, ctx.tile_ox, ctx.rect_ref, ctx.rect_src,
             D, AB, maps.fwd_valid, params)
+    pack = params.rect_backmap_pack
     if not with_geom:
-        return backmap(rect_ncc(*args), maps, (H_eval, Wg), params.cost_max)
+        return backmap(rect_ncc(*args), maps, (H_eval, Wg), params.cost_max,
+                       pack)
     if ctx.rect_sdisp is None:
         raise ValueError("with_geom needs the context's rect_sdisp")
     cost, geom = rect_ncc(*args, sdisp=ctx.rect_sdisp)
-    return (backmap(cost, maps, (H_eval, Wg), params.cost_max),
-            backmap(geom, maps, (H_eval, Wg), params.geom_max_cost))
+    return (backmap(cost, maps, (H_eval, Wg), params.cost_max, pack),
+            backmap(geom, maps, (H_eval, Wg), params.geom_max_cost, pack))

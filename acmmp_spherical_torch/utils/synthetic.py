@@ -5,7 +5,9 @@ only), and their on-disk scene folders.
 The interior of a textured cube room: closed-form ray exits give exact
 ground-truth depth and a smooth 3D texture gives exact photo-consistency.
 Rendering is numpy on the camera's float32 parameters, so images and depths
-equal the reference package's renders bit for bit.
+equal the reference package's renders bit for bit.  ``OccludedRoom`` adds
+an occluding box (true depth steps); ``render_scene_hostile`` adds specular
+shading, per-view exposure, noise and JPEG artefacts.
 """
 
 from __future__ import annotations
@@ -57,6 +59,37 @@ class CubeRoom:
         sign = np.take_along_axis(np.sign(d), axis[..., None], axis=-1)[..., 0]
         normal = np.zeros(direction.shape)
         np.put_along_axis(normal, axis[..., None], -sign[..., None], axis=-1)
+        return t, normal
+
+
+@dataclasses.dataclass(frozen=True)
+class OccludedRoom(CubeRoom):
+    """CubeRoom with an axis-aligned box inside it: its silhouette makes
+    true depth discontinuities (fore/background steps of several units),
+    the hard case for windowed and slab sampling.  The texture is the same
+    world-space field, so photo-consistency stays exact."""
+
+    box_center: tuple = (0.8, -0.4, 0.6)
+    box_half: tuple = (1.0, 1.2, 0.8)
+
+    def ray_exit(self, origin: np.ndarray, direction: np.ndarray):
+        t_room, n_room = CubeRoom.ray_exit(self, origin, direction)
+        d = np.where(np.abs(direction) < 1e-12, 1e-12, direction)
+        c = np.asarray(self.box_center)
+        h = np.asarray(self.box_half)
+        t0 = (c - h - origin) / d
+        t1 = (c + h - origin) / d
+        t_near = np.minimum(t0, t1)
+        t_far = np.maximum(t0, t1)
+        t_enter = np.max(t_near, axis=-1)
+        t_exit = np.min(t_far, axis=-1)
+        hit = (t_enter < t_exit) & (t_enter > 1e-6) & (t_enter < t_room)
+        axis = np.argmax(t_near, axis=-1)
+        sign = np.take_along_axis(np.sign(d), axis[..., None], axis=-1)[..., 0]
+        n_box = np.zeros(direction.shape)
+        np.put_along_axis(n_box, axis[..., None], -sign[..., None], axis=-1)
+        t = np.where(hit, t_enter, t_room)
+        normal = np.where(hit[..., None], n_box, n_room)
         return t, normal
 
 
@@ -130,6 +163,50 @@ def render_scene(cams: Sequence[Camera], scene: CubeRoom, width: int,
     (V,H,W,3) world frame)."""
     out = [render_view(cam, scene, width, height) for cam in cams]
     return tuple(np.stack(a) for a in zip(*out))
+
+
+def render_scene_hostile(cams: Sequence[Camera], scene: CubeRoom, width: int,
+                         height: int, *, seed: int = 0,
+                         specular_ks: float = 30.0,
+                         specular_power: float = 8.0,
+                         gain_range: tuple = (0.85, 1.15),
+                         bias_range: tuple = (-10.0, 10.0),
+                         noise_sigma: float = 2.0, jpeg_quality: int = 75):
+    """``render_scene`` with what real captures add: a view-dependent
+    specular lobe (Blinn-Phong toward a fixed world light), a gain and bias
+    per view, Gaussian sensor noise and a JPEG round trip at
+    ``jpeg_quality``.  Depths and normals stay the exact ground truth.  The
+    random draws come from ``np.random.default_rng(seed)`` in the reference
+    package's order, so the images equal its renders bit for bit."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    light = np.array([0.3, -0.8, 0.52])
+    light = light / np.linalg.norm(light)
+    images, depths, normals = [], [], []
+    for cam in cams:
+        img, dep, nrm = render_view(cam, scene, width, height)
+        ys, xs = np.mgrid[0:height, 0:width].astype(np.float32)
+        rays_world = _pixel_ray_np(cam, xs, ys) @ _np32(cam.R)
+        rays_world = rays_world / np.linalg.norm(rays_world, axis=-1,
+                                                 keepdims=True)
+        halfv = light[None, None] - rays_world        # toward the viewer
+        halfv = halfv / np.maximum(
+            np.linalg.norm(halfv, axis=-1, keepdims=True), 1e-9)
+        spec = np.maximum(np.sum(halfv * nrm, axis=-1), 0.0) ** specular_power
+        img = img + specular_ks * spec.astype(np.float32)
+        img = rng.uniform(*gain_range) * img + rng.uniform(*bias_range)
+        img = img + rng.normal(0.0, noise_sigma, img.shape).astype(np.float32)
+        img = np.clip(img, 0.0, 255.0)
+        ok, buf = cv2.imencode(".jpg", img.astype(np.uint8),
+                               [cv2.IMWRITE_JPEG_QUALITY, int(jpeg_quality)])
+        if not ok:
+            raise RuntimeError("JPEG encoding failed")
+        img = cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE).astype(np.float32)
+        images.append(img)
+        depths.append(dep)
+        normals.append(nrm)
+    return np.stack(images), np.stack(depths), np.stack(normals)
 
 
 def write_synthetic_scene_to_disk(root, cams: Sequence[Camera], images):

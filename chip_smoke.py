@@ -12,7 +12,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    on the card, at the shapes of the 1024x768x8src photometric pass (the
    C=9 and C=5 parity evaluations and the C=1 init evaluation; the source
    warp with its tile gate on and off); every kernel (phase 4 too) must
-   equal its plain version bit for bit;
+   equal its plain version bit for bit.  Phases 2-8 and 10 pin both bf16
+   packs off (the f32 variant of kernels 1 and 4); on the operands of each
+   rect_ncc case the packed-tap variant (``rect_tap_pack``, kernels 1p and
+   4p) is held bit for bit against its packed plain version, must differ
+   from the f32 variant, and is timed beside it (f32, packed, packed, f32);
 3. drive the photometric path -- ``pipeline.patchmatch.run_patchmatch`` on
    the CubeRoom 1024x768x8src scene -- once warm and three times timed, with
    the launch counters zeroed just before and read just after; its median
@@ -26,8 +30,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    counters zeroed just before and read just after; its depth must be
    finite, with a median relative error < 0.0032 and below the photometric
    pass's;
+4b. the packed bench points: the photometric and geometric passes of
+   phases 3-4 with both bf16 packs on (the defaults), the packed chain
+   (seeds and source depths from packed passes), at the same gates, and no
+   launch of the f32 kernels; then the photometric pass with each pack
+   alone (its error printed, not gated);
 5. the 96x64x3src golden photometric and geometric passes match the
-   reference's committed statistics at drift_gate's 2e-2;
+   reference's committed statistics at drift_gate's 2e-2, the photometric
+   one with the packs off and on (the fixture was made with them on);
 6. the windowed photometric path (``rect_ncc`` off, ``fast_ncc`` on, as the
    pass runner runs problems that fail ``host_rectifiable``): ``ncc_window``
    against its plain version, bit for bit, on the batched launches of the
@@ -89,7 +99,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    band: each pass's band error must be < 0.02 (the reference's own sphere
    geometric pass does not lower the band error when its source depths
    come from the views' photometric passes, so the geometric pass is not
-   held below the photometric one);
+   held below the photometric one); then both passes again with both bf16
+   packs on, at the same gate;
 11. the sphere scene: ``run_pipeline`` with ``PipelineConfig()`` defaults on
    6 equirect views of the CubeRoom ring at 1024x512 (two scales, 512x256
    then 1024x512), with the same launch sorting and first-launch checks as
@@ -123,8 +134,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    0, each runs the round-robin share of every pass, only rank 0 fuses,
    every file equals phase 11's byte for byte (the manifest as sets of
    entries: ranks mark in completion order), and the ranks' launches add
-   up to phase 11's.
-Every kernel must have been launched by one of the driven paths.
+   up to phase 11's;
+14. the discontinuity golden (tests/test_discontinuity.py): an
+   OccludedRoom ring of 4 views at 96x64, key 3, through the exact,
+   windowed and rectified paths at the defaults (packed), median relative
+   depth error < 0.02 and < 0.06 in the band around the depth steps; each
+   path's first launch of each kernel at each operand shape is held bit
+   for bit against its plain version, and every kernel a path launches
+   must have been checked;
+15. the hostile bench pass: ``render_scene_hostile`` of an OccludedRoom on
+   the 1024x768x8src ring, one rectified photometric pass with both bf16
+   packs off and one with both on, their median errors and shares within
+   1% (gated on finite depth only), with the first-launch checks of phase
+   14 in each warm pass.
+Phases 9 and 11-13 run ``PipelineConfig()`` defaults, both bf16 packs on:
+their first-launch checks hold kernels 1p and 4p against the packed plain
+version, and the f32 kernels 1 and 4 must not launch there.  Every kernel
+must have been launched by one of the driven paths.
 
 Prints the card's name and power limit, one JSON line of kernel results,
 then, last, ``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is the
@@ -185,8 +211,8 @@ PIPELINE_SCENE = dict(
     label="pinhole", n_views=8, width=1600, height=1200,
     cameras=dict(focal=1440.0, radius=0.25), err_border=6,
     depth_err_max=0.02, min_points=2000, tau=0.08, on_surface_min=0.9,
-    kernels=("rect_ncc", "rect_ncc_geom", "warp_transport", "warp_src_frames",
-             "warp_src_disparities"))
+    kernels=("rect_ncc_pk", "rect_ncc_geom_pk", "warp_transport",
+             "warp_src_frames", "warp_src_disparities"))
 # phase 10: the sphere operating point (root bench.py:257-261) and the gate
 # of tests/test_sphere_rect.py:119 over the latitude band that LAT_CAP_DEG
 # leaves, for both passes: the geometric pass is not held below the
@@ -205,7 +231,10 @@ SPHERE_PIPELINE_SCENE = dict(
     label="sphere", n_views=6, width=1024, height=512,
     cameras=dict(model="sphere"), err_border=0, depth_err_max=0.08,
     min_points=1500, tau=0.2, on_surface_min=0.7,
-    kernels=("rect_ncc", "rect_ncc_geom"))
+    kernels=("rect_ncc_pk", "rect_ncc_geom_pk"))
+# the pipelines run PipelineConfig() defaults, both bf16 packs on: the f32
+# variants of kernels 1 and 4 must not launch there
+F32_RECT_KERNELS = ("rect_ncc", "rect_ncc_geom")
 # phase 12: slots of the one card for the batched pipeline (the phase-9
 # scene's 8 problems in chunks of 3, 3 and 2) and the view-parallel step's
 # synthetic batch
@@ -215,6 +244,13 @@ ODD_SCENE = dict(width=95, height=64, n_src=3, focal=80.0, radius=0.35)
 PHOT_KERNELS = ("rect_ncc", "warp_transport", "warp_src_frames")
 GEOM_KERNELS = ("rect_ncc_geom", "warp_transport", "warp_src_frames",
                 "warp_src_disparities")
+PK_PHOT_KERNELS = ("rect_ncc_pk", "warp_transport", "warp_src_frames")
+PK_GEOM_KERNELS = ("rect_ncc_geom_pk", "warp_transport", "warp_src_frames",
+                   "warp_src_disparities")
+# phase 14: the discontinuity golden (tests/test_discontinuity.py: an
+# OccludedRoom ring of 4 views at 96x64, focal 80, key 3) and its gates
+DISCONTINUITY = dict(width=96, height=64, n_views=4, focal=80.0, key=3,
+                     err_max=0.02, band_err_max=0.06)
 
 
 def log(msg: str) -> None:
@@ -412,6 +448,7 @@ def check_rect_case(name, rect, normals, ws, parity, p, with_geom):
         normals, ws, maps.bwd_x, maps.bwd_y, maps.fwd_idx, maps.fwd_valid,
         rect.pr.R_rr, rect.pr.K, rect.pr.baseline, rect.srow, D, AB), 0)
     return dict(
+        packed=check_packed_case(name, rargs, sd, ncc_bound),
         ncc_max_abs_err=max(err, gerr or 0.0),
         transport_max_abs_err=float((D - Dp).abs().max()),
         transport_ms=cuda_ms(lambda: NR.coefficient_transport(*targs), 10),
@@ -423,6 +460,96 @@ def check_rect_case(name, rect, normals, ws, parity, p, with_geom):
         ncc_bound=ncc_bound,
         batched_ms=cuda_ms(lambda: NR.rect_batched_ncc(
             rect, normals, ws, p, parity=parity, with_geom=with_geom), 5))
+
+
+def check_packed_case(name, rargs, sd, bnd):
+    """Kernel 1p (``sd`` holding sdisp: 4p), the packed-tap variant, on the
+    operands ``rargs`` of an f32 case: bit for bit against its plain
+    version with the same flag; its CUDA-event time beside the f32
+    variant's on the same operands (in turns f32, packed, packed, f32),
+    with kernel 1's bound."""
+    import torch
+
+    from acmmp_spherical_torch.ops.kernels import ncc_rect as NR
+
+    *args, p = rargs
+    pp = dataclasses.replace(p, rect_tap_pack=True)
+    fp = dataclasses.replace(p, rect_tap_pack=False)
+    k = NR.rect_ncc(*args, pp, **sd)
+    pl = NR.rect_ncc_plain(*args, pp, **sd)
+    f32 = NR.rect_ncc(*args, fp, **sd)
+    torch.cuda.synchronize()
+    if not _same(k, pl):
+        raise AssertionError(f"rect_ncc packed {name}: not bit-identical to "
+                             f"the plain version, max err {_max_err(k, pl)}")
+    cost, cost32 = (k[0], f32[0]) if sd else (k, f32)
+    changed = float((cost != cost32).float().mean())
+    t = [cuda_ms(lambda q=q: NR.rect_ncc(*args, q, **sd), 5)
+         for q in (fp, pp, pp, fp)]
+    out = dict(ms=(t[1] + t[2]) / 2, f32_ms=(t[0] + t[3]) / 2,
+               ms_turns=t, plain_ms=cuda_ms(
+                   lambda: NR.rect_ncc_plain(*args, pp, **sd), 1),
+               bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=0.0,
+               changed_fraction=changed)
+    log(f"rect_ncc{'_geom' if sd else ''}_pk {name}: bit-identical to its "
+        f"plain version; {out}")
+    if not changed > 0.0:
+        raise AssertionError(f"rect_ncc packed {name}: equals the f32 "
+                             "variant everywhere")
+    return out
+
+
+def ptxas_of(ptxas: dict, variant: str) -> dict:
+    """ptxas' numbers of one variant's instantiations (``rect_ptxas``;
+    ``variant`` "phot", "geom", "phot_pk" or "geom_pk")."""
+    return {k: v for k, v in ptxas.items() if k.rsplit("_", 1)[0] == variant}
+
+
+def packed_entry(cases: dict, ptxas: dict, variant: str):
+    """The kernel entry of 1p or 4p (``variant`` "phot_pk" or "geom_pk")
+    over its cases {name: case}: the first case's numbers, every case's
+    under ``cases``, and ptxas' registers and spills."""
+    first = next(iter(cases.values()))
+    e = kernel_entry("rect_ncc.cu", "ncc_rect.py:614", 0.0, first["ms"],
+                     first["plain_ms"], (first["bound_ms"], first["bound_by"]))
+    e.update(f32_ms=first["f32_ms"], variant="rect_tap_pack=True",
+             cases=cases, ptxas=ptxas_of(ptxas, variant))
+    return e
+
+
+def rect_ptxas(path) -> dict:
+    """{variant: {registers, spill_stores, spill_loads}} of the
+    rect_ncc_kernel instantiations in the build's ptxas log; a variant is
+    "phot" or "geom", "_pk" for packed taps, then "_default" (the unrolled
+    11x11 stride-2 taps) or "_runtime" (tap bounds read at run time)."""
+    import re
+
+    out, cur = {}, None
+    if not path.exists():
+        return out
+    for line in path.read_text().splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            t = re.search(r"rect_ncc_kernelILb(\d)ELb(\d)ELi(\d+)E",
+                          m.group(1))
+            cur = None if t is None else (
+                ("geom" if t.group(1) == "1" else "phot")
+                + ("_pk" if t.group(2) == "1" else "")
+                + ("_runtime" if t.group(3) == "0" else "_default"))
+            if cur is not None:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 def kernel_entry(route_src, replaces, max_abs_err, ms, plain_ms, bnd):
@@ -510,6 +637,10 @@ def check_phot_kernels(inputs, params, results):
     names = ("C9_parity0", "C5_parity1", "C1_init")
     results["warp_transport"] = rect_entry(results, names, "transport")
     results["rect_ncc"] = rect_entry(results, names, "ncc")
+    results["rect_ncc"]["ptxas"] = ptxas_of(results["ptxas"], "phot")
+    results["rect_ncc_pk"] = packed_entry(
+        {n: results["cases"][n]["packed"] for n in names}, results["ptxas"],
+        "phot_pk")
 
 
 def check_geom_kernels(inputs, params, seeds, results):
@@ -543,8 +674,12 @@ def check_geom_kernels(inputs, params, seeds, results):
         case = check_rect_case(name, rect, nn, ww, parity, params, True)
         results["cases"][name] = case
         log(f"{name}: {case}")
-    results["rect_ncc_geom"] = rect_entry(
-        results, ("geom_C9_parity0", "geom_C5_parity1"), "ncc")
+    names = ("geom_C9_parity0", "geom_C5_parity1")
+    results["rect_ncc_geom"] = rect_entry(results, names, "ncc")
+    results["rect_ncc_geom"]["ptxas"] = ptxas_of(results["ptxas"], "geom")
+    results["rect_ncc_geom_pk"] = packed_entry(
+        {n: results["cases"][n]["packed"] for n in names}, results["ptxas"],
+        "geom_pk")
 
 
 def check_sphere_case(name, ctx, normals, ws, parity, p, with_geom):
@@ -594,6 +729,8 @@ def check_sphere_case(name, ctx, normals, ws, parity, p, with_geom):
             *tables, maps.fwd_idx, maps.fwd_valid), 5),
         batched_ms=cuda_ms(lambda: SR.sphere_batched_ncc(
             ctx, normals, ws, p, with_geom=with_geom, parity=parity), 5))
+    case["packed"] = check_packed_case(f"sphere {name}", rargs, sd,
+                                       case["bound"])
     log(f"sphere {name}: {case}")
     return case
 
@@ -693,7 +830,43 @@ def run_sphere_phase(dev, results):
             nm: dict(ms=cases[nm]["ms"], plain_ms=cases[nm]["plain_ms"],
                      bound_ms=cases[nm]["bound"][0],
                      bound_by=cases[nm]["bound"][1]) for nm in names}
-    out.update(cases=cases, phot=phot, geom=geom)
+        results[k + "_pk"]["sphere_cases"] = {
+            nm: cases[nm]["packed"] for nm in names}
+
+    # the same passes with both bf16 packs on (the defaults), beside the
+    # f32 ones: the packed chain (seeds and source depths from packed
+    # passes, keys as above)
+    pk_params = dataclasses.replace(params, rect_tap_pack=True,
+                                    rect_backmap_pack=True)
+    pres, pphot = drive("sphere photometric packed", ("rect_ncc_pk",),
+                        lambda r: run_patchmatch(inputs, pk_params, r))
+    pd = pres[0].cpu().numpy()
+    if not np_finite(pd) or pphot["launches"]["rect_ncc"]:
+        raise AssertionError("packed sphere pass: depth not finite, or the "
+                             "f32 kernel launched")
+    pphot["errors"] = sphere_band_errors(pd, gt[0], inputs.ref_cam)
+    pphot["pass_ms"] = 1e3 * sum(pphot["pass_s"]) / len(pphot["pass_s"])
+    pg_inputs = dataclasses.replace(inputs, src_depths=source_depths(
+        inputs, pk_params, key_base=2000))
+    pseeds = dict(seed_normal_world=pres[1], seed_depth=pres[0])
+    pg_params = pk_params.with_geom(multi_geometry=False)
+    pgres, pgeom = drive("sphere geometric packed", ("rect_ncc_geom_pk",),
+                         lambda r: run_patchmatch(pg_inputs, pg_params,
+                                                  50 + r, **pseeds))
+    pgd = pgres[0].cpu().numpy()
+    if not np_finite(pgd) or pgeom["launches"]["rect_ncc_geom"]:
+        raise AssertionError("packed sphere geometric pass: depth not "
+                             "finite, or the f32 kernel launched")
+    pgeom["errors"] = sphere_band_errors(pgd, gt[0], inputs.ref_cam)
+    pgeom["pass_ms"] = 1e3 * sum(pgeom["pass_s"]) / len(pgeom["pass_s"])
+    log(f"sphere packed: photometric {pphot}; geometric {pgeom} (f32: "
+        f"{phot['errors']}, {geom['errors']})")
+    for nm, e in (("photometric", pphot), ("geometric", pgeom)):
+        if not e["errors"]["band"] < SPHERE_BAND_ERR_MAX:
+            raise AssertionError(f"packed sphere {nm} band error "
+                                 f"{e['errors']} >= {SPHERE_BAND_ERR_MAX}")
+    out.update(cases=cases, phot=phot, geom=geom, phot_pk=pphot,
+               geom_pk=pgeom)
     return out
 
 
@@ -917,14 +1090,15 @@ def warp_residual(inputs, depth):
 
 def drive(name, kernels, fn, reps: int = 3):
     """Run a path once warm and ``reps`` times timed with the launch
-    counters zeroed just before and read just after."""
+    counters zeroed just before and read just after; returns the last
+    run's output and the numbers."""
     import torch
 
     from acmmp_spherical_torch.ops.kernels import _lib
 
     _lib.reset_launch_counts()
     t0 = time.perf_counter()
-    fn(0)
+    out = fn(0)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     times = []
@@ -1029,7 +1203,8 @@ class LaunchScopes:
         elif name == "write" or is_pass:
             round_ = self._round
             delta = self._close_round()
-            launched = delta["rect_ncc"] or delta["ncc_window"]
+            launched = (delta["rect_ncc"] or delta["rect_ncc_pk"]
+                        or delta["ncc_window"])
             if round_ == "prior" and launched:
                 self.prior_rounds[self._pass] = (
                     self.prior_rounds.get(self._pass, 0) + 1)
@@ -1070,8 +1245,9 @@ class LaunchScopes:
 # the kernel each checked wrapper launches, from its bound arguments
 KERNEL_OF = {
     "coefficient_transport": lambda a: "warp_transport",
-    "rect_ncc": lambda a: ("rect_ncc" if a.get("sdisp") is None
-                           else "rect_ncc_geom"),
+    "rect_ncc": lambda a: (("rect_ncc" if a.get("sdisp") is None
+                            else "rect_ncc_geom")
+                           + ("_pk" if a["params"].rect_tap_pack else "")),
     "warp_src_frames": lambda a: "warp_src_frames",
     "warp_src_disparities": lambda a: "warp_src_disparities",
     "ncc_window": lambda a: ("ncc_window" if a.get("dep") is None
@@ -1123,6 +1299,32 @@ def checked_kernels(scopes):
     finally:
         for mod, name, fn in kept:
             setattr(mod, name, fn)
+
+
+def drive_checked(name, kernels, fn, reps: int = 3):
+    """``drive`` inside ``checked_kernels``: the first launch of each kernel
+    at each set of operand shapes (in the warm run) is held bit for bit
+    against its plain version, and every kernel the path launched must have
+    been checked.  The run's numbers gain ``plain_checks``: per kernel, the
+    shapes checked and the largest difference."""
+    scopes = LaunchScopes()
+    with checked_kernels(scopes):
+        out, run = drive(name, kernels, fn, reps)
+    if scopes.failures:
+        raise AssertionError("; ".join(scopes.failures))
+    checks: dict = {}
+    for (_, _, _, k, _), err in scopes.checks.items():
+        c = checks.setdefault(k, dict(shapes=0, max_abs_err=0.0))
+        c["shapes"] += 1
+        c["max_abs_err"] = max(c["max_abs_err"], err)
+    unchecked = [k for k, v in run["launches"].items()
+                 if v and k not in checks]
+    if unchecked:
+        raise AssertionError(f"{name}: {unchecked} launched but never held "
+                             "against the plain version")
+    run["plain_checks"] = checks
+    log(f"{name}: first-launch checks {checks}, all bit-identical")
+    return out, run
 
 
 @contextlib.contextmanager
@@ -1280,6 +1482,10 @@ def run_pipeline_phase(dev, sc, work, gt, name, *, mesh=None, checked=True):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the "
                                  "pipeline")
+    for k in F32_RECT_KERNELS:
+        if launches[k]:
+            raise AssertionError(f"the f32 kernel {k} launched in a pipeline "
+                                 "at the defaults (both bf16 packs on)")
     if checked:
         unchecked = [f"{p} {r} {k}" for (p, r), acc in scopes.by_round.items()
                      for k, v in acc.items() if v and k != "window_sample"
@@ -1449,6 +1655,131 @@ def run_batched_phase(dev, sc, work, gt, serial):
     return out
 
 
+def occlusion_band(gt):
+    """Pixels within 3 px of a ground-truth depth step > 5% of the depth
+    (tests/test_discontinuity.py)."""
+    import numpy as np
+
+    band = np.maximum(np.abs(np.diff(gt, axis=0, prepend=gt[:1])),
+                      np.abs(np.diff(gt, axis=1, prepend=gt[:, :1]))
+                      ) > 0.05 * gt
+    for _ in range(3):
+        band[1:] |= band[:-1]
+        band[:-1] |= band[1:]
+        band[:, 1:] |= band[:, :-1]
+        band[:, :-1] |= band[:, 1:]
+    return band
+
+
+def run_discontinuity_phase(dev):
+    """Phase 14: tests/test_discontinuity.py on the card.  An OccludedRoom
+    ring of 4 views at 96x64 (focal 80, key 3) through the exact, windowed
+    and rectified paths at the defaults of ``PatchMatchParams`` (both bf16
+    packs on; prescreen is not ported), each run once with the launch
+    counters zeroed just before and read just after and its kernels' first
+    launches checked (``drive_checked``).  Median relative
+    depth error over [6:-6, 6:-6] < 0.02, and < 0.06 in the band within 3
+    px of a depth step."""
+    import numpy as np
+    import torch
+
+    from acmmp_spherical_torch.config import PatchMatchParams
+    from acmmp_spherical_torch.core.camera import stack_cameras
+    from acmmp_spherical_torch.ops.propagate import PatchMatchInputs
+    from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch
+    from acmmp_spherical_torch.utils.synthetic import (
+        OccludedRoom, make_ring_of_cameras, render_scene,
+    )
+
+    dc = DISCONTINUITY
+    W, H, n = dc["width"], dc["height"], dc["n_views"]
+    cams = make_ring_of_cameras(n, width=W, height=H, focal=dc["focal"],
+                                device=dev)
+    images, depths, _ = render_scene(cams, OccludedRoom(), W, H)
+    gt = depths[0]
+    band = occlusion_band(gt)
+    imgs = torch.as_tensor(images, device=dev)
+    inputs = PatchMatchInputs(
+        ref_image=imgs[0], src_images=imgs[1:], ref_cam=cams[0],
+        src_cams=stack_cameras(cams[1:]),
+        src_valid=torch.ones(n - 1, dtype=torch.bool, device=dev),
+        depth_range=cams[0].depth_range)
+    inner = np.s_[6:-6, 6:-6]
+    out = dict(band_fraction=float(band.mean()), paths={}, errors={})
+    for path, fast, rect, kernels in (
+            ("exact", False, False, ()),
+            ("window", True, False, ("ncc_window",)),
+            ("rect", True, True, PK_PHOT_KERNELS)):
+        params = dataclasses.replace(PatchMatchParams(), fast_ncc=fast,
+                                     rect_ncc=rect, rect_init=rect)
+        res, run = drive_checked(
+            f"discontinuity {path}", kernels,
+            lambda r: run_patchmatch(inputs, params, dc["key"]), reps=0)
+        d = res[0].cpu().numpy()
+        if not np_finite(d) or d.shape != gt.shape:
+            raise AssertionError(f"discontinuity {path}: depth not finite")
+        rel = np.abs(d - gt) / gt
+        out["paths"][path] = run
+        out["errors"][path] = dict(
+            median=float(np.median(rel[inner])),
+            band=float(np.median(rel[inner][band[inner]])))
+    log(f"phase 14: discontinuity golden, band {out['band_fraction']:.4f} "
+        f"of the frame; errors {out['errors']} (gates {dc['err_max']} / "
+        f"{dc['band_err_max']}); launches "
+        f"{ {k: v['launches'] for k, v in out['paths'].items()} }")
+    if out["paths"]["rect"]["launches"]["rect_ncc"]:
+        raise AssertionError("the discontinuity golden's rectified path "
+                             "launched the f32 rect kernel")
+    for path, e in out["errors"].items():
+        if not (e["median"] < dc["err_max"]
+                and e["band"] < dc["band_err_max"]):
+            raise AssertionError(f"discontinuity {path}: {e}")
+    return out
+
+
+def run_hostile_phase(dev):
+    """Phase 15: ``render_scene_hostile`` (seed 0: specular lobe, exposure,
+    noise, JPEG q75) of an OccludedRoom on the 1024x768x8src bench ring:
+    one photometric rectified pass (key 1, after a warm key-0 pass) with
+    both bf16 packs off and one with both on, the launch counters zeroed
+    just before and read just after each and the warm pass's first launches
+    checked (``drive_checked``).  Median relative depth error and
+    the share of pixels within 1% over [8:-8, 8:-8].  First numbers at this
+    size, with no reference value: gated only on finite depth."""
+    import numpy as np
+
+    from acmmp_spherical_torch.bench import BENCH_SCENE, make_problem
+    from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch
+    from acmmp_spherical_torch.utils.synthetic import (
+        OccludedRoom, render_scene_hostile,
+    )
+
+    t0 = time.perf_counter()
+    inputs, params, gt, _ = make_problem(**BENCH_SCENE, device=dev,
+                                         scene=OccludedRoom(),
+                                         render=render_scene_hostile)
+    out = dict(scene_s=time.perf_counter() - t0, paths={}, errors={})
+    g = gt[0][8:-8, 8:-8]
+    for tag, packs, kernels in (("f32", False, PHOT_KERNELS),
+                                ("packed", True, PK_PHOT_KERNELS)):
+        p = dataclasses.replace(params, rect_tap_pack=packs,
+                                rect_backmap_pack=packs)
+        res, run = drive_checked(f"hostile photometric {tag}", kernels,
+                                 lambda r: run_patchmatch(inputs, p, r),
+                                 reps=1)
+        d = res[0].cpu().numpy()
+        if not np_finite(d) or d.shape != gt[0].shape:
+            raise AssertionError(f"hostile pass ({tag}): depth not finite")
+        rel = np.abs(d[8:-8, 8:-8] - g) / g
+        run["pass_ms"] = 1e3 * run["pass_s"][0]
+        out["paths"][tag] = run
+        out["errors"][tag] = dict(median_rel_err=float(np.median(rel)),
+                                  within_1pct=float(np.mean(rel < 0.01)))
+    log(f"phase 15: hostile bench pass {out['errors']}; pass ms "
+        f"{ {k: v['pass_ms'] for k, v in out['paths'].items()} }")
+    return out
+
+
 RANK_SCRIPT = """
 import json, runpy, sys
 from acmmp_spherical_torch.ops.kernels import _lib
@@ -1569,6 +1900,8 @@ def main() -> int:
         for line in ptxas.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"ptxas: {line.strip()}")
+    results: dict = {"ptxas": rect_ptxas(ptxas)}
+    log(f"rect_ncc instantiations (registers, spills): {results['ptxas']}")
 
     # the bench problem and its rectified context
     t0 = time.perf_counter()
@@ -1581,8 +1914,8 @@ def main() -> int:
     ctx_ms = cuda_ms(lambda: prepare_inputs(inputs, params), 2)
     log(f"build_rect_context {ctx_ms:.1f} ms")
 
-    # phase 2: photometric kernels against their plain versions
-    results: dict = {}
+    # phase 2: photometric kernels against their plain versions (and the
+    # packed-tap variant of kernel 1 on the same operands)
     check_phot_kernels(prepared, params, results)
     del prepared
 
@@ -1616,11 +1949,53 @@ def main() -> int:
         raise AssertionError(f"geometric median rel depth err {grel}: not "
                              f"below {DEPTH_ERR_MAX} and the photometric {rel}")
 
+    # phase 4b: the packed bench points -- the photometric and geometric
+    # passes with both bf16 packs on (the defaults), the packed chain
+    # (seeds and source depths from packed passes), at the f32 gates
+    pk_params = dataclasses.replace(params, rect_tap_pack=True,
+                                    rect_backmap_pack=True)
+    pout, pphot = drive("photometric packed", PK_PHOT_KERNELS,
+                        lambda r: run_patchmatch(inputs, pk_params, r))
+    prel = median_rel_err(pout[0], gt[0])
+    pg_inputs = dataclasses.replace(
+        inputs, src_depths=source_depths(inputs, pk_params))
+    pg_params = pk_params.with_geom(multi_geometry=False)
+    pgout, pgeom = drive("geometric packed", PK_GEOM_KERNELS,
+                         lambda r: run_patchmatch(
+                             pg_inputs, pg_params, 100 + r,
+                             seed_normal_world=pout[1], seed_depth=pout[0]))
+    pgrel = median_rel_err(pgout[0], gt[0])
+    del pg_inputs
+    log(f"packed: photometric median rel depth err {prel} (f32 {rel}), "
+        f"geometric {pgrel} (f32 {grel})")
+    for e in (pphot, pgeom):
+        e["pass_ms"] = 1e3 * sum(e["pass_s"]) / len(e["pass_s"])
+    if pphot["launches"]["rect_ncc"] or pgeom["launches"]["rect_ncc_geom"]:
+        raise AssertionError("a packed pass launched the f32 rect kernel")
+    if prel >= DEPTH_ERR_MAX or pgrel >= DEPTH_ERR_MAX or pgrel >= prel:
+        raise AssertionError(f"packed passes: photometric {prel}, geometric "
+                             f"{pgrel}, gates {DEPTH_ERR_MAX} and below the "
+                             "photometric")
+    # each pack alone, on the photometric pass (numbers only, no gate)
+    one_pack = {}
+    for flag in ("rect_tap_pack", "rect_backmap_pack"):
+        one = dataclasses.replace(params, **{flag: True})
+        o, run = drive(f"photometric, {flag} alone", PHOT_KERNELS[1:],
+                       lambda r: run_patchmatch(inputs, one, r), reps=1)
+        one_pack[flag] = dict(median_rel_depth_err=median_rel_err(o[0], gt[0]),
+                              pass_s=run["pass_s"], launches=run["launches"])
+    log(f"photometric with one pack on: {one_pack}")
+
     # phase 5: golden passes against the reference's fixtures
     ginputs, gparams = make_problem(**GOLDEN_SCENE, device=dev)[:2]
     gparams = dataclasses.replace(gparams, rect_inv_attrib=False)
     worst = check_golden("golden_pass_stats_warp.json",
                          run_patchmatch(ginputs, gparams, GOLDEN_KEY))
+    # the same pass at the reference's defaults, both bf16 packs on, as the
+    # fixture was made
+    pk_worst = check_golden("golden_pass_stats_warp.json", run_patchmatch(
+        ginputs, dataclasses.replace(gparams, rect_tap_pack=True,
+                                     rect_backmap_pack=True), GOLDEN_KEY))
     gg_inputs, gg_params, gg_seeds, _ = golden_geom_problem(dev)
     gworst = check_golden("golden_geom_pass_stats_rect.json", run_patchmatch(
         gg_inputs, gg_params, GOLDEN_KEY, **gg_seeds))
@@ -1742,18 +2117,27 @@ def main() -> int:
     # phase 13: phase 11's scene by two ranks of reconstruct --distributed
     dpipe = run_distributed_phase(SPHERE_PIPELINE_SCENE, work, spipe)
     work_dir.cleanup()
-    for p_ in (pipe, spipe, bpipe["batched_checked"], bpipe["multichip"]):
+
+    # phase 14: the discontinuity golden on the card, at the defaults
+    disc = run_discontinuity_phase(dev)
+
+    # phase 15: the hostile bench pass, packs on and off
+    hostile = run_hostile_phase(dev)
+    for p_ in (pipe, spipe, bpipe["batched_checked"], bpipe["multichip"],
+               *disc["paths"].values(), *hostile["paths"].values()):
         for key, c in p_["plain_checks"].items():
             e = results[key.rsplit(" ", 1)[-1]]
             e["max_abs_err"] = max(e["max_abs_err"], c["max_abs_err"])
             e["pipeline_checks"] = e.get("pipeline_checks", 0) + c["shapes"]
 
-    names = ("rect_ncc", "rect_ncc_geom", "warp_transport", "warp_src_frames",
-             "warp_src_disparities", "ncc_window", "ncc_window_geom",
-             "window_sample")
-    paths = (phot, geom, win, wgeom, samp, pipe, sphere["phot"],
-             sphere["geom"], spipe, bpipe["batched_checked"],
-             bpipe["batched"], bpipe["multichip"], dpipe)
+    names = ("rect_ncc", "rect_ncc_geom", "rect_ncc_pk", "rect_ncc_geom_pk",
+             "warp_transport", "warp_src_frames", "warp_src_disparities",
+             "ncc_window", "ncc_window_geom", "window_sample")
+    paths = (phot, geom, pphot, pgeom, win, wgeom, samp, pipe,
+             sphere["phot"], sphere["geom"], sphere["phot_pk"],
+             sphere["geom_pk"], spipe, bpipe["batched_checked"],
+             bpipe["batched"], bpipe["multichip"], dpipe,
+             *disc["paths"].values(), *hostile["paths"].values())
     kernels = [dict(name=k, launches=sum(p["launches"][k] for p in paths),
                     **results[k]) for k in names]
     for k in kernels:
@@ -1768,9 +2152,14 @@ def main() -> int:
         "windowed_sampler": samp, "warp_residual": resid,
         "warp_residual_gt": gt_resid,
         "median_rel_depth_err": rel, "geom_median_rel_depth_err": grel,
+        "photometric_packed": pphot, "geometric_packed": pgeom,
+        "packed_median_rel_depth_err": prel,
+        "packed_geom_median_rel_depth_err": pgrel,
+        "photometric_one_pack": one_pack,
         "window_median_rel_depth_err": wrel,
         "window_geom_median_rel_depth_err": wgrel,
         "golden_worst_over_tol": worst, "golden_geom_worst_over_tol": gworst,
+        "golden_packed_worst_over_tol": pk_worst,
         "golden_exact_worst_over_tol": eworst,
         "golden_window_worst_over_tol": wworst,
         "golden_odd_worst_over_tol": oworst,
@@ -1778,6 +2167,7 @@ def main() -> int:
         "golden_hier_worst_over_tol": hworst, "pipeline": pipe,
         "sphere": sphere, "sphere_pipeline": spipe, "convert": conv,
         "batched_pipeline": bpipe, "distributed_pipeline": dpipe,
+        "discontinuity": disc, "hostile": hostile,
         "smoke_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -73,12 +73,14 @@ DEPTH_ERR_MAX = 0.02       # tests/test_batch_runner.py
 ON_SURFACE_MIN = 0.9
 
 
-def pipeline_cfg(cls=PipelineConfig, params=PatchMatchParams, **kw):
+def pipeline_cfg(cls=PipelineConfig, params=PatchMatchParams, packs=False,
+                 **kw):
     """The test's configuration (either package's classes): the rectified
-    path, as on the card (the bf16 packs off: the port has none), one
+    path, as on the card, with both bf16 packs off (the f32 variant, as the
+    fixture was made; tests/test_torch_pipeline_packs.py runs them on), one
     PatchMatch iteration in the photometric pass."""
-    return cls(patchmatch=params(max_iterations=1, rect_tap_pack=False,
-                                 rect_backmap_pack=False),
+    return cls(patchmatch=params(max_iterations=1, rect_tap_pack=packs,
+                                 rect_backmap_pack=packs),
                rect_ncc="on", **kw)
 
 

@@ -8,7 +8,8 @@ JAX, so they also run on a GPU host without it:
 
 Tolerances (as chip_smoke.py): warp_transport (``coefficient_transport``,
 every candidate count, map and pass, and on edge fields) bit-exact; rect_ncc
-(both variants, every candidate count and tap pattern) bit-exact;
+(both variants, with f32 and with packed taps, every candidate count and
+tap pattern; a source frame of bf16 ties and NaN words) bit-exact;
 warp_src_frames and warp_src_disparities (gate on and off, bench and odd
 frames; source depths with zeros, negatives and a NaN) bit-exact;
 ncc_window (both variants, every field count and tap pattern) bit-exact;
@@ -116,6 +117,7 @@ def test_cuda_kernels_match_plain(cuda):
     torch.cuda.synchronize()
     assert torch.equal(fk, fp) and bool((fk > SENTINEL_THRESH).any())
     assert _lib.LAUNCHES == {"rect_ncc": 1, "rect_ncc_geom": 0,
+                             "rect_ncc_pk": 0, "rect_ncc_geom_pk": 0,
                              "warp_transport": 1, "warp_src_frames": 1,
                              "warp_src_disparities": 0, "ncc_window": 0,
                              "ncc_window_geom": 0, "window_sample": 0}
@@ -156,25 +158,22 @@ def test_geom_kernels_match_plain(cuda):
     assert torch.equal(ck, cp) and torch.equal(gk, gp)
     assert bool((gk < params.geom_max_cost).any())
     assert _lib.LAUNCHES == {"rect_ncc": 0, "rect_ncc_geom": 1,
+                             "rect_ncc_pk": 0, "rect_ncc_geom_pk": 0,
                              "warp_transport": 1, "warp_src_frames": 0,
                              "warp_src_disparities": 1, "ncc_window": 0,
                              "ncc_window_geom": 0, "window_sample": 0}
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("pattern", ["11x11s2", "7x7s1"])
-@pytest.mark.parametrize("with_geom", [False, True], ids=["phot", "geom"])
-@pytest.mark.parametrize("C", [1, 3, 5, 9])
-def test_rect_ncc_chunks_match_plain(cuda, C, with_geom, pattern):
-    """rect_ncc walks the candidates in chunks: bit-identical to the plain
-    version for C at and across the chunk edges, both variants, on the
-    default tap pattern and on 7x7 at stride 1 (49 taps, the instantiation
-    with runtime tap bounds)."""
+def _chunk_operands(cuda, C, pattern, **change):
+    """Kernel 1's operands on the golden geometric problem: C plane fields
+    around the seed on the parity-0 map (w scaled by 1 + 0.005 k), with
+    ``pattern``'s taps; returns (args, sdisp, params, maps)."""
     from acmmp_spherical_torch.core import geometry as G
 
     inputs, params, seeds, _ = golden_geom_problem(cuda)
     if pattern == "7x7s1":
         params = dataclasses.replace(params, patch_size=7, radius_increment=1)
+    params = dataclasses.replace(params, **change)
     rect = prepare_inputs(inputs, params).rect
     H, W = inputs.ref_image.shape
     xs, ys = grid_coords(H, W, cuda)
@@ -187,15 +186,91 @@ def test_rect_ncc_chunks_match_plain(cuda, C, with_geom, pattern):
     maps = rect.maps[1]
     D, AB = NR.coefficient_transport(rect, maps, normals, ws)
     args = (rect.srow, rect.tile_oy, rect.tile_ox, rect.rect_ref,
-            rect.rect_src, D, AB, maps.fwd_valid, params)
-    kw = dict(sdisp=rect.rect_sdisp) if with_geom else {}
+            rect.rect_src, D, AB, maps.fwd_valid)
+    return args, rect.rect_sdisp, params, maps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["11x11s2", "7x7s1"])
+@pytest.mark.parametrize("with_geom", [False, True], ids=["phot", "geom"])
+@pytest.mark.parametrize("C", [1, 3, 5, 9])
+def test_rect_ncc_chunks_match_plain(cuda, C, with_geom, pattern):
+    """rect_ncc walks the candidates in chunks: bit-identical to the plain
+    version for C at and across the chunk edges, both variants, on the
+    default tap pattern and on 7x7 at stride 1 (49 taps, the instantiation
+    with runtime tap bounds)."""
+    args, sdisp, params, maps = _chunk_operands(cuda, C, pattern)
+    kw = dict(sdisp=sdisp) if with_geom else {}
     _lib.reset_launch_counts()
-    k, p = NR.rect_ncc(*args, **kw), NR.rect_ncc_plain(*args, **kw)
+    k = NR.rect_ncc(*args, params, **kw)
+    p = NR.rect_ncc_plain(*args, params, **kw)
     torch.cuda.synchronize()
     for a, b in zip(k, p) if with_geom else ((k, p),):
         assert a.shape == (C, *maps.fwd_valid.shape) and torch.equal(a, b)
     assert bool(((p[0] if with_geom else p) < params.cost_max).any())
     assert _lib.LAUNCHES["rect_ncc_geom" if with_geom else "rect_ncc"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["11x11s2", "7x7s1"])
+@pytest.mark.parametrize("with_geom", [False, True], ids=["phot", "geom"])
+@pytest.mark.parametrize("C", [1, 5, 9])
+def test_rect_ncc_packed_taps_match_plain(cuda, C, with_geom, pattern):
+    """The packed-tap variant (rect_tap_pack, kernels 1p and 4p) against
+    the packed plain version, bit for bit, counted under its own name; it
+    differs from the f32 variant on the same operands."""
+    args, sdisp, params, maps = _chunk_operands(cuda, C, pattern,
+                                                rect_tap_pack=True)
+    kw = dict(sdisp=sdisp) if with_geom else {}
+    _lib.reset_launch_counts()
+    k = NR.rect_ncc(*args, params, **kw)
+    p = NR.rect_ncc_plain(*args, params, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p) if with_geom else ((k, p),):
+        assert a.shape == (C, *maps.fwd_valid.shape) and torch.equal(a, b)
+    name = "rect_ncc_geom" if with_geom else "rect_ncc"
+    assert _lib.LAUNCHES[name + "_pk"] == 1 and _lib.LAUNCHES[name] == 0
+    f32 = NR.rect_ncc(*args, dataclasses.replace(params, rect_tap_pack=False),
+                      **kw)
+    assert not torch.equal(f32[0] if with_geom else f32,
+                           k[0] if with_geom else k)
+
+
+@pytest.mark.gpu
+def test_packed_taps_bit_rule_on_ties_and_nan(cuda):
+    """round_bf16 writes the same words on the card as on the CPU (ties to
+    even, infinities kept, NaN -> 0x7FC0 with its sign), and the packed
+    kernel on a source frame whose values all sit on a bf16 tie, with NaN
+    words in it, equals its plain version bit for bit."""
+    words = np.array([0x3F808000, 0x3F818000, 0x3F80FFFF, 0x7F7FFFFF,
+                      0xFF800000, 0x7FC00001, 0xFF812345, 0x80018000],
+                     dtype=np.uint32)
+    x = torch.from_numpy(words.view(np.float32).copy())
+    want = NR.round_bf16(x).numpy().view(np.uint32)
+    got = NR.round_bf16(x.to(cuda)).cpu().numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        want, [0x3F800000, 0x3F820000, 0x3F810000, 0x7F800000, 0xFF800000,
+               0x7FC00000, 0xFFC00000, 0x80020000])
+
+    args, _, params, _ = _chunk_operands(cuda, 5, "11x11s2",
+                                         rect_tap_pack=True)
+    src = args[4]
+    bits = src.view(torch.int32)
+    real = src > SENTINEL_THRESH
+    tie = (bits & ~0xFFFF) | 0x8000           # every real value a tie
+    tie = torch.where(real, tie, bits)
+    flat = tie.reshape(-1)                   # and a NaN word every 97th
+    flat[::97] = torch.where(real.reshape(-1)[::97], 0x7FC00001, flat[::97])
+    args = args[:4] + (tie.view(torch.float32),) + args[5:]
+    _lib.reset_launch_counts()
+    k = NR.rect_ncc(*args, params)
+    p = NR.rect_ncc_plain(*args, params)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p) and _lib.LAUNCHES["rect_ncc_pk"] == 1
+    assert bool((k < params.cost_max).any())
+    f32 = NR.rect_ncc(*args, dataclasses.replace(params, rect_tap_pack=False))
+    assert not torch.equal(f32, k)
 
 
 def _transport_fields(inputs, seeds, parity, C):

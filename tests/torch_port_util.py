@@ -40,9 +40,11 @@ def port_params(params):
     return interop.params(dataclasses.asdict(params))
 
 
-def rect_params(cams_jax, *, inv_attrib=True, iterations=3, hw=(H, W)):
+def rect_params(cams_jax, *, inv_attrib=True, iterations=3, hw=(H, W),
+                packs=False):
     """The golden problem's rect+warp PatchMatchParams, both bf16 packs off
-    (host mirrors from the reference package); ``hw`` the frame size."""
+    unless ``packs`` (host mirrors from the reference package); ``hw`` the
+    frame size."""
     from acmmp_spherical_tpu.config import PatchMatchParams
     from acmmp_spherical_tpu.core.camera import stack_cameras
     from acmmp_spherical_tpu.ops import rectify as RT
@@ -57,8 +59,8 @@ def rect_params(cams_jax, *, inv_attrib=True, iterations=3, hw=(H, W)):
         rect_live_n=RT.rect_live_tile_count(cams_jax[0], src, rhw, chw),
         rect_init=iwin > 0, rect_init_win=iwin or 384,
         rect_warp_hw=RT.rect_warp_window(cams_jax[0], src, rhw),
-        rect_inv_attrib=inv_attrib, rect_tap_pack=False,
-        rect_backmap_pack=False)
+        rect_inv_attrib=inv_attrib, rect_tap_pack=packs,
+        rect_backmap_pack=packs)
 
 
 def golden_scene(width=W, height=H, n_views=N_VIEWS, focal=80.0):
