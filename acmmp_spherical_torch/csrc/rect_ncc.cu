@@ -3,7 +3,8 @@
 //
 // Replaces: acmmp_spherical_tpu/ops/pallas/ncc_rect.py::_rect_kernel (:110),
 // launched by run_rect_kernel (:614), photometric and with_geom variants,
-// rect_tap_pack False and True (kTapPack, below).  Per tile and candidate
+// rect_tap_pack False and True (kTapPack, below: the packed src_sample
+// branch, :230-272, and the per-candidate pair pack, :297-306).  Per tile and candidate
 // the kernel places a source window at the tile-min of x - clip(D, dlo, dhi)
 // (128-aligned, clamped), samples the taps (11x11 at stride 2 by default)
 // bilinearly in x on the tap's own row at x + dx - (D + A dx + B dy),
@@ -21,7 +22,9 @@
 // output is bit-identical to rect_ncc_plain); a multiply-add then costs two
 // instructions, so the card issues at most ~33.5 T fp32 lane-instructions/s
 // (132 SMs x 128 lanes x ~1.98 GHz), half the 67 TFLOP/s that counts FMAs.
-// The tap loop compiles to ~32 instructions per (candidate, pixel, tap).
+// The tap loop compiles to ~32 instructions per (candidate, pixel, tap):
+// 577 SASS instructions for the 6 taps x 3 candidates of the default
+// pattern's chunk of 3 (scripts/sass_rect_ncc.py).
 // Tensor cores do not apply: every sum weights a value gathered at a column
 // that depends on the candidate and the pixel, so no operand is shared
 // across a matrix product.
@@ -75,19 +78,30 @@
 //
 // Packed taps (kTapPack, params.rect_tap_pack, the reference's default):
 // the Pallas kernel reads both bilinear x-neighbours of a tap as one bf16
-// pair word (pack_ab of the window and its +1 lane roll, ncc_rect.py:297-
-// 306, unpacked at :257), which rounds every source value that a tap or the
-// centre check samples to bf16 and changes nothing else: the reference
-// side, the interpolation, the SENTINEL test and the sdisp read stay f32.
-// So kTapPack rounds each loaded source value (round to nearest even on the
-// bits, NaN -> 0x7FC0 with its sign, as ops/kernels/ncc_rect.py's
-// _to_bf16_bits) and runs the f32 kernel on it: the plain version rounds
-// the whole frame instead, bit-identical.  One operand serves pinhole and
-// sphere frames alike.  The cost is about 12 more issued instructions per
-// (candidate, pixel, tap) in a loop bound by instruction issue: 42-43%
-// slower than the f32 instantiation at C=9 on an NVIDIA H100 80GB HBM3 at
-// 700 W (PERF.md §6); rounding the frame once per context instead is the
-// queued redesign.
+// pair word (pack_ab of the window and its +1 lane roll, built per
+// candidate window at ncc_rect.py:297-306, gathered and unpacked per tap at
+// :247-257), which rounds every source value that a tap or the centre
+// check samples to bf16 and changes nothing else: the reference side, the
+// interpolation, the SENTINEL test and the sdisp read stay f32.  Here the
+// pair words are made once per rectified context, for whole frames, by
+// pack_src_pairs.cu (the context's rect_src_pk, reused by its prior round
+// and by every launch of the pass), and kTapPack reads one 32-bit word per
+// tap and per centre check where the f32 instantiation loads two floats:
+// g0 is the word's high half, g1 its low half, each as f32 bits.  Nothing
+// is rounded in the loop.  The plain version rounds the f32 frame; the
+// output is bit-identical.  One pair frame serves pinhole and sphere
+// frames alike.  What the pair frame changed: the first port of kTapPack
+// rounded each loaded value in the loop, 825 instructions for the chunk
+// of 3 (45.8 per (candidate, pixel, tap)) with two loads in each tap's
+// chain, 42-43% slower than the f32 loop; now 584 (32.4: the two unpack
+// instructions in place of a load), within 1% of the f32 loop's time, so
+// 1p is bound by issue as kernel 1 is (PERF.md §6; NVIDIA H100 80GB HBM3,
+// 700 W).  The f32 instantiations compile to the same SASS as before.
+// Shared-memory staging of the source windows is not the design: at
+// rect_win_w = 384 one candidate's 18-row window of pair words is 27.6 KB,
+// and a chunk of 3 plus the staged reference band is ~114 KB of shared
+// memory, one 256-thread block per SM against four; the gathers hit L1
+// and the 50 MB L2, and the loop is bound by issue, not by their bytes.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -124,6 +138,7 @@ struct Args {
   int C, S, N, Hp, Wp, win_w, radius, increment;
   float inv_2sc, clampv, cost_max, geom_max;
   double inv_2ss;
+  const uint32_t* src_pk;   // kTapPack: the pair-word frames (S, Hp, Wp)
 };
 
 // What every chunk of one block shares.
@@ -141,6 +156,7 @@ struct Block {
   const float* src_frame;
   const float* sdisp_frame;
   int rad, inc, n_off;
+  const uint32_t* pk_frame;   // kTapPack: this pair's pair-word frame
 };
 
 __device__ __forceinline__ float warp_min(float v) {
@@ -148,13 +164,42 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
-// A loaded source value: rounded to bf16 (kept in an f32) with kTapPack.
+// The source frame a variant reads: f32 values, or with kTapPack the
+// pair words of pack_src_pairs.cu (bf16(src[x]) high, bf16(src[x + 1]) low).
+template <bool kTapPack> struct SrcFrame { using T = float; };
+template <> struct SrcFrame<true> { using T = uint32_t; };
+
 template <bool kTapPack>
-__device__ __forceinline__ float src_value(float v) {
-  if (!kTapPack) return v;
-  const uint32_t u = __float_as_uint(v);
-  const uint32_t rne = (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
-  return __uint_as_float(isnan(v) ? (u & 0x80000000u) | 0x7FC00000u : rne);
+__device__ __forceinline__ const typename SrcFrame<kTapPack>::T* frame_of(
+    const Block& b) {
+  if constexpr (kTapPack) return b.pk_frame; else return b.src_frame;
+}
+
+// The bilinear x-neighbours (g0, g1) of the column at p: two f32 loads, or
+// one pair word, whose halves are the bf16 values as f32 bits.  pair_at
+// loads through the ordinary path, ldg_pair through the read-only one.
+__device__ __forceinline__ void unpack_pair(uint32_t w, float& g0,
+                                            float& g1) {
+  g0 = __uint_as_float(w & 0xFFFF0000u);
+  g1 = __uint_as_float(w << 16);
+}
+__device__ __forceinline__ void pair_at(const float* p, float& g0,
+                                        float& g1) {
+  g0 = p[0];
+  g1 = p[1];
+}
+__device__ __forceinline__ void pair_at(const uint32_t* p, float& g0,
+                                        float& g1) {
+  unpack_pair(p[0], g0, g1);
+}
+__device__ __forceinline__ void ldg_pair(const float* p, float& g0,
+                                         float& g1) {
+  g0 = __ldg(p);
+  g1 = __ldg(p + 1);
+}
+__device__ __forceinline__ void ldg_pair(const uint32_t* p, float& g0,
+                                         float& g1) {
+  unpack_pair(__ldg(p), g0, g1);
 }
 
 __device__ __forceinline__ int floor_to_int(float v) {
@@ -210,7 +255,8 @@ __device__ __forceinline__ void run_chunk(const Args& a, const Block& b,
     const float cen_n = b.en_b[cen];
     // the pixel's own source row, at unpadded column 0 (a frame holds
     // < 2^31 values)
-    const float* src_row = b.src_frame + ((b.oy + kTileH + r) * a.Wp + kPadX);
+    const auto* src_row =
+        frame_of<kTapPack>(b) + ((b.oy + kTileH + r) * a.Wp + kPadX);
 
     // per candidate: coefficients, the window's middle column, centre
     // test.  A floored column xf lies in the window [cmin, cmin + win_w - 2]
@@ -234,8 +280,8 @@ __device__ __forceinline__ void run_chunk(const Args& a, const Block& b,
       int xi = 0;
       if (fabsf(xf - mid_c) <= half_w) {
         xi = (int)xf;
-        const float g0 = src_value<kTapPack>(src_row[xi]);
-        const float g1 = src_value<kTapPack>(src_row[xi + 1]);
+        float g0, g1;
+        pair_at(src_row + xi, g0, g1);
         ok = g0 > kSentinelThresh && g1 > kSentinelThresh;
       }
       ok = ok && (D > 0.0f) && valid;
@@ -267,7 +313,7 @@ __device__ __forceinline__ void run_chunk(const Args& a, const Block& b,
     if (__any_sync(0xffffffffu, any_ok)) {
       // the tap row's source row, carried from row to row so that a tap's
       // address is one multiply-add on it
-      const float* tap_row = src_row - rad * a.Wp;
+      const auto* tap_row = src_row - rad * a.Wp;
 #pragma unroll 1
       for (int iy = 0; iy < n_off; ++iy, tap_row += inc * a.Wp) {
         const int dy = -rad + iy * inc;
@@ -294,9 +340,9 @@ __device__ __forceinline__ void run_chunk(const Args& a, const Block& b,
             const float xsrc = xgd - ((Dj[j] + Aj[j] * dxf) + Bj[j] * dyf);
             const float xf = floorf(xsrc);
             const bool inwin = fabsf(xf - mid[j]) <= half_w;
-            const float* p = tap_row + (inwin ? __float2int_rz(xf) : 0);
-            const float g0 = src_value<kTapPack>(__ldg(p));
-            const float g1 = src_value<kTapPack>(__ldg(p + 1));
+            const auto* p = tap_row + (inwin ? __float2int_rz(xf) : 0);
+            float g0, g1;
+            ldg_pair(p, g0, g1);
             const bool ok =
                 inwin && g0 > kSentinelThresh && g1 > kSentinelThresh;
             const float v = g0 + (g1 - g0) * (xsrc - xf);
@@ -426,6 +472,7 @@ rect_ncc_kernel(const __grid_constant__ Args a) {
   b.rad = rad;
   b.inc = inc;
   b.n_off = n_off;
+  b.pk_frame = kTapPack ? a.src_pk + (long long)s * a.Hp * a.Wp : nullptr;
 
   for (int c0 = 0; c0 < a.C;) {
     // balanced chunks of at most kChunk candidates
@@ -450,9 +497,9 @@ void launch_pattern(const Args& a, cudaStream_t stream) {
 }
 
 template <bool kGeom>
-int launch_rect_ncc(const Args& a, int tap_pack, cudaStream_t stream) {
+int launch_rect_ncc(const Args& a, cudaStream_t stream) {
   if (a.N > 0 && a.S > 0) {
-    if (tap_pack)
+    if (a.src_pk != nullptr)
       launch_pattern<kGeom, true>(a, stream);
     else
       launch_pattern<kGeom, false>(a, stream);
@@ -465,21 +512,22 @@ int launch_rect_ncc(const Args& a, int tap_pack, cudaStream_t stream) {
 // srow (S, 128) f32; tile_oy, tile_ox (S, N) int32 storage-frame origins;
 // rect_ref, rect_src (S, Hp, Wp) f32 padded frames; D (C, S, 8N, 128) f32;
 // AB (C, S, 8N, 128) bf16 pair words; fwd_valid (S, 8N, 128) f32;
-// out (C, S, 8N, 128) f32.  radius <= 8, at most 64 taps.  tap_pack != 0:
-// the packed-tap variant.
+// out (C, S, 8N, 128) f32.  radius <= 8, at most 64 taps.  src_pk (S, Hp,
+// Wp) the pair words of rect_src (pack_src_pairs.cu), or null: non-null
+// runs the packed-tap variant, which reads src_pk in place of rect_src.
 extern "C" int acmmp_rect_ncc(const float* srow, const int32_t* tile_oy,
                               const int32_t* tile_ox, const float* rect_ref,
                               const float* rect_src, const float* D,
                               const uint32_t* AB, const float* fwd_valid,
                               float* out, int C, int S, int N, int Hp, int Wp,
                               int win_w, int radius, int increment,
-                              int tap_pack, float inv_2sc, float clampv,
-                              float cost_max, double inv_2ss,
+                              const uint32_t* src_pk, float inv_2sc,
+                              float clampv, float cost_max, double inv_2ss,
                               cudaStream_t stream) {
   const Args a{srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
                out, nullptr, nullptr, C, S, N, Hp, Wp, win_w, radius,
-               increment, inv_2sc, clampv, cost_max, 0.0f, inv_2ss};
-  return launch_rect_ncc<false>(a, tap_pack, stream);
+               increment, inv_2sc, clampv, cost_max, 0.0f, inv_2ss, src_pk};
+  return launch_rect_ncc<false>(a, stream);
 }
 
 // The with_geom variant: also sdisp (S, Hp, Wp) f32 in and the geometric
@@ -492,11 +540,12 @@ extern "C" int acmmp_rect_ncc_geom(const float* srow, const int32_t* tile_oy,
                                    float* out, const float* sdisp, float* gout,
                                    int C, int S, int N, int Hp, int Wp,
                                    int win_w, int radius, int increment,
-                                   int tap_pack, float inv_2sc, float clampv,
-                                   float cost_max, float geom_max,
-                                   double inv_2ss, cudaStream_t stream) {
+                                   const uint32_t* src_pk, float inv_2sc,
+                                   float clampv, float cost_max,
+                                   float geom_max, double inv_2ss,
+                                   cudaStream_t stream) {
   const Args a{srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
                out, sdisp, gout, C, S, N, Hp, Wp, win_w, radius, increment,
-               inv_2sc, clampv, cost_max, geom_max, inv_2ss};
-  return launch_rect_ncc<true>(a, tap_pack, stream);
+               inv_2sc, clampv, cost_max, geom_max, inv_2ss, src_pk};
+  return launch_rect_ncc<true>(a, stream);
 }

@@ -20,8 +20,10 @@ x-neighbours of a tap as one bf16 pair word, which rounds every source value
 a tap or the centre check samples to bf16 (round to nearest even) and
 changes nothing else -- the reference side and the with_geom disparity
 window stay f32.  So the packed kernel is the f32 kernel on a source frame
-rounded to bf16 (``round_bf16``); kernel 1 rounds each value it loads, the
-plain version rounds the frame.  ``params.rect_backmap_pack`` (C > 1): cost
+rounded to bf16 (``round_bf16``).  Kernel 1 reads the pair words from a
+frame that kernel ``pack_src_pairs`` makes once per context
+(``with_src_pairs``, kept as ``rect_src_pk``): one 32-bit load per tap; the
+plain version rounds the f32 frame.  ``params.rect_backmap_pack`` (C > 1): cost
 pairs ride one bf16 pair word through the back-map gather, which rounds
 every mapped-back cost (the geometric one too) to bf16; the fill of
 unclaimed pixels stays exact f32.
@@ -29,6 +31,7 @@ unclaimed pixels stays exact f32.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -36,7 +39,7 @@ import torch
 from acmmp_spherical_torch.config import PatchMatchParams
 from acmmp_spherical_torch.ops.kernels import _lib
 from acmmp_spherical_torch.ops.rectify import (
-    PAD_X, RectContext, SENTINEL_THRESH,
+    PAD_X, SENTINEL, SENTINEL_THRESH, RectContext,
 )
 
 TILE_H = 8
@@ -74,6 +77,50 @@ def unpack_ab(ab: torch.Tensor):
     to_f = lambda v: torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(
         torch.int32).view(torch.float32)
     return to_f(hi), to_f(lo)
+
+
+# ---------------------------------------------------------------------------
+# the pair-word source frame of the packed taps
+# ---------------------------------------------------------------------------
+
+def pack_src_pairs_plain(rect_src: torch.Tensor) -> torch.Tensor:
+    """Plain torch ``pack_src_pairs``: the (S, Hp, Wp) int32 pair words of
+    an f32 frame.  Word x holds bf16(src[x]) high and bf16(src[x + 1]) low
+    (``pack_ab``); the last column's low half, which no tap reads, holds
+    SENTINEL's."""
+    nxt = torch.cat([rect_src[..., 1:],
+                     torch.full_like(rect_src[..., :1], SENTINEL)], -1)
+    return pack_ab(rect_src, nxt)
+
+
+def pack_src_pairs(rect_src: torch.Tensor) -> torch.Tensor:
+    """Kernel ``pack_src_pairs`` (csrc/pack_src_pairs.cu) on a CUDA tensor,
+    word for word ``pack_src_pairs_plain``, which runs on a CPU one."""
+    if rect_src.device.type == "cpu":
+        return pack_src_pairs_plain(rect_src)
+    if rect_src.dim() != 3:
+        raise ValueError(f"rect_src must be (S, Hp, Wp), got "
+                         f"{tuple(rect_src.shape)}")
+    S, Hp, Wp = rect_src.shape
+    _lib.require(rect_src, "rect_src", torch.float32)
+    out = torch.empty((S, Hp, Wp), dtype=torch.int32, device=rect_src.device)
+    lib = _lib.library()
+    with torch.cuda.device(rect_src.device):
+        err = lib.acmmp_pack_src_pairs(rect_src.data_ptr(), out.data_ptr(),
+                                       S * Hp, Wp, _lib.stream_ptr(out))
+    _lib.check(err, "pack_src_pairs")
+    _lib.count_launch("pack_src_pairs")
+    return out
+
+
+def with_src_pairs(ctx, params: PatchMatchParams):
+    """``ctx`` (a ``RectContext`` or ``SphereRectContext``) with its
+    pair-word frame ``rect_src_pk`` when ``params.rect_tap_pack``: made
+    once, so a context that has it (the prior round reuses its pass's)
+    keeps it."""
+    if not params.rect_tap_pack or ctx.rect_src_pk is not None:
+        return ctx
+    return dataclasses.replace(ctx, rect_src_pk=pack_src_pairs(ctx.rect_src))
 
 
 # ---------------------------------------------------------------------------
@@ -192,13 +239,16 @@ def _weight_consts(params: PatchMatchParams):
 
 
 def rect_ncc_plain(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB,
-                   fwd_valid, params: PatchMatchParams, sdisp=None):
+                   fwd_valid, params: PatchMatchParams, sdisp=None,
+                   src_pk=None):
     """Plain torch kernel 1: loops over candidates and taps and keeps only
     the six running sums per candidate, never a (C, S, taps, 8N, 128)
     tensor.  Same per-tile rules, weight formula and summation order as the
     Pallas kernel; with ``params.rect_tap_pack`` the source values it
     samples are rounded to bf16 (``round_bf16`` of the frame), as the
-    reference's packed taps are.  With ``sdisp`` (the with_geom variant) also
+    reference's packed taps are.  ``src_pk``, the kernel's pair-word frame,
+    is not read: rounding ``rect_src`` here holds the kernel and its pair
+    frame to account together.  With ``sdisp`` (the with_geom variant) also
     the geometric cost: ``min(geom_max_cost, |D - sdisp| * srow[4])`` with
     sdisp read at the centre tap's source column, ``geom_max_cost`` where
     the centre is invalid or sdisp is SENTINEL; returns (cost, geom)."""
@@ -300,12 +350,13 @@ def rect_ncc_plain(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB,
 
 
 def rect_ncc(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
-             params: PatchMatchParams, sdisp=None):
+             params: PatchMatchParams, sdisp=None, src_pk=None):
     """Kernel 1 (csrc/rect_ncc.cu) on CUDA tensors; the plain version on CPU
     tensors.  Returns the (C, S, 8N, 128) cost planes; with ``sdisp`` (S, Hp,
     Wp) the with_geom variant, returning (cost, geom) planes.  With
-    ``params.rect_tap_pack`` the packed-tap variant runs, counted under
-    ``rect_ncc_pk`` / ``rect_ncc_geom_pk``."""
+    ``params.rect_tap_pack`` the packed-tap variant runs on ``src_pk``,
+    ``pack_src_pairs(rect_src)`` (the context's ``rect_src_pk``), counted
+    under ``rect_ncc_pk`` / ``rect_ncc_geom_pk``."""
     if D.device.type == "cpu":
         return rect_ncc_plain(srow, tile_oy, tile_ox, rect_ref, rect_src, D,
                               AB, fwd_valid, params, sdisp)
@@ -325,6 +376,12 @@ def rect_ncc(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
     _lib.require(D, "D", torch.float32, (C, S, K8, TILE_W), dev)
     _lib.require(AB, "AB", torch.int32, (C, S, K8, TILE_W), dev)
     _lib.require(fwd_valid, "fwd_valid", torch.float32, (S, K8, TILE_W), dev)
+    pack = bool(params.rect_tap_pack)
+    if pack:
+        if src_pk is None:
+            raise ValueError("rect_tap_pack needs src_pk, the pair-word "
+                             "frame pack_src_pairs(rect_src)")
+        _lib.require(src_pk, "src_pk", torch.int32, (S, Hp, Wp), dev)
     inv_2ss, inv_2sc, clampv, r, offs = _weight_consts(params)
     if len(offs) ** 2 > 64 or r > 8:
         raise ValueError("rect_ncc supports patch radius <= 8 and <= 64 taps")
@@ -333,8 +390,8 @@ def rect_ncc(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
     common = (srow.data_ptr(), tile_oy.data_ptr(), tile_ox.data_ptr(),
               rect_ref.data_ptr(), rect_src.data_ptr(), D.data_ptr(),
               AB.data_ptr(), fwd_valid.data_ptr(), out.data_ptr())
-    pack = bool(params.rect_tap_pack)
-    shape = (C, S, N, Hp, Wp, win_w, r, params.radius_increment, int(pack))
+    shape = (C, S, N, Hp, Wp, win_w, r, params.radius_increment,
+             src_pk.data_ptr() if pack else None)
     suffix = "_pk" if pack else ""
     if sdisp is None:
         with torch.cuda.device(dev):
@@ -391,9 +448,11 @@ def rect_batched_ncc(rect: RectContext, normals, ws, params: PatchMatchParams,
             rect.rect_src, D, AB, maps.fwd_valid, params)
     pack = params.rect_backmap_pack
     if not with_geom:
-        return backmap(rect_ncc(*args), maps, (H, Wg), params.cost_max, pack)
+        return backmap(rect_ncc(*args, src_pk=rect.rect_src_pk), maps,
+                       (H, Wg), params.cost_max, pack)
     if rect.rect_sdisp is None:
         raise ValueError("with_geom needs the context's rect_sdisp")
-    cost, geom = rect_ncc(*args, sdisp=rect.rect_sdisp)
+    cost, geom = rect_ncc(*args, sdisp=rect.rect_sdisp,
+                          src_pk=rect.rect_src_pk)
     return (backmap(cost, maps, (H, Wg), params.cost_max, pack),
             backmap(geom, maps, (H, Wg), params.geom_max_cost, pack))

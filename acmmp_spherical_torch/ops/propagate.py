@@ -35,7 +35,9 @@ from acmmp_spherical_torch.ops.candidates import (
     Candidates, NEAR_REGION_INDICES, gather_candidates,
 )
 from acmmp_spherical_torch.ops.geom import geom_consistency_cost
-from acmmp_spherical_torch.ops.kernels.ncc_rect import rect_batched_ncc
+from acmmp_spherical_torch.ops.kernels.ncc_rect import (
+    rect_batched_ncc, with_src_pairs,
+)
 from acmmp_spherical_torch.ops.kernels.ncc_window import (
     TILE_H, TILE_W, windowed_multiview_ncc,
 )
@@ -86,37 +88,47 @@ def prepare_inputs(inputs: PatchMatchInputs,
                    params: PatchMatchParams) -> PatchMatchInputs:
     """Attach the rectified working set when ``params.rect_ncc``
     (``build_rect_context`` for pinhole problems,
-    ``build_sphere_rect_context`` for SPHERE ones); the windowed and exact
-    paths, and mixed-model problems, need nothing more."""
+    ``build_sphere_rect_context`` for SPHERE ones), with its pair-word
+    source frame when ``params.rect_tap_pack`` (``ncc_rect.with_src_pairs``;
+    a context that is already attached gains it if it lacks it); the
+    windowed and exact paths, and mixed-model problems, need nothing
+    more."""
+    _check_params(params)
+    if not params.rect_ncc or _model(inputs) is None:
+        return inputs
+    rect = inputs.rect if inputs.rect is not None else _build_context(
+        inputs, params)
+    rect = with_src_pairs(rect, params)
+    return inputs if rect is inputs.rect else dataclasses.replace(
+        inputs, rect=rect)
+
+
+def _build_context(inputs: PatchMatchInputs, params: PatchMatchParams):
     from acmmp_spherical_torch.ops.rectify import (
         build_rect_context, host_rectifiable, rect_shape,
     )
 
-    _check_params(params)
-    if not params.rect_ncc or inputs.rect is not None or _model(inputs) is None:
-        return inputs
     src_depths = inputs.src_depths if params.geom_consistency else None
     if _model(inputs) == SPHERE:
         if not sphere_rectifiable(inputs.ref_cam, inputs.src_cams):
             raise ValueError(
                 "the problem fails sphere_rectifiable: run it with "
                 "rect_ncc=False (the exact path), as the pass runner does")
-        return dataclasses.replace(inputs, rect=build_sphere_rect_context(
+        return build_sphere_rect_context(
             inputs.ref_image, inputs.src_images, inputs.ref_cam,
             inputs.src_cams, _depth_range(inputs), src_depths=src_depths,
-            live_n=params.sphere_live_n))
+            live_n=params.sphere_live_n)
     H, W = inputs.ref_image.shape
     if not host_rectifiable(inputs.ref_cam, inputs.src_cams, rect_shape(H, W)):
         raise ValueError(
             "the problem fails host_rectifiable: run it with rect_ncc=False "
             "(the windowed or exact path), as the pass runner does")
-    rect = build_rect_context(
+    return build_rect_context(
         inputs.ref_image, inputs.src_images, inputs.ref_cam, inputs.src_cams,
         (inputs.depth_range[0], inputs.depth_range[1]),
         comp_hw=params.rect_comp_hw, live_n=params.rect_live_n,
         warp_hw=params.rect_warp_hw, inv_attrib=params.rect_inv_attrib,
         src_depths=src_depths)
-    return dataclasses.replace(inputs, rect=rect)
 
 
 def _depth_range(inputs: PatchMatchInputs):

@@ -525,6 +525,9 @@ class RectContext:
     # each pair's rect frame as the implied rect disparity f*B/z_rect
     # (SENTINEL where there is no valid source depth)
     rect_sdisp: "torch.Tensor | None" = None
+    # packed taps: (S, ..., ...) int32 bf16 pair words of rect_src
+    # (ncc_rect.with_src_pairs)
+    rect_src_pk: "torch.Tensor | None" = None
 
 
 def _parity_maps(attrib, tile_gather, bwd_cidx, bwd_x, bwd_y, okc, hw, N,

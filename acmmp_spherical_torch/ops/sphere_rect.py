@@ -77,6 +77,8 @@ class SphereRectContext:
     slat: torch.Tensor       # (S, H, W, 3) sin(rotated lat) at the targets
     lat: torch.Tensor        # (S, H, W, 3) rotated lat (radians)
     baseline: torch.Tensor   # (S,)
+    # packed taps: the pair words of rect_src (ncc_rect.with_src_pairs)
+    rect_src_pk: "torch.Tensor | None" = None
 
 
 # ---------------------------------------------------------------------------
@@ -380,10 +382,11 @@ def sphere_batched_ncc(ctx: SphereRectContext, normals, ws, params, *,
             D, AB, maps.fwd_valid, params)
     pack = params.rect_backmap_pack
     if not with_geom:
-        return backmap(rect_ncc(*args), maps, (H_eval, Wg), params.cost_max,
-                       pack)
+        return backmap(rect_ncc(*args, src_pk=ctx.rect_src_pk), maps,
+                       (H_eval, Wg), params.cost_max, pack)
     if ctx.rect_sdisp is None:
         raise ValueError("with_geom needs the context's rect_sdisp")
-    cost, geom = rect_ncc(*args, sdisp=ctx.rect_sdisp)
+    cost, geom = rect_ncc(*args, sdisp=ctx.rect_sdisp,
+                          src_pk=ctx.rect_src_pk)
     return (backmap(cost, maps, (H_eval, Wg), params.cost_max, pack),
             backmap(geom, maps, (H_eval, Wg), params.geom_max_cost, pack))

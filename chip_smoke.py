@@ -15,8 +15,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    equal its plain version bit for bit.  Phases 2-8 and 10 pin both bf16
    packs off (the f32 variant of kernels 1 and 4); on the operands of each
    rect_ncc case the packed-tap variant (``rect_tap_pack``, kernels 1p and
-   4p) is held bit for bit against its packed plain version, must differ
-   from the f32 variant, and is timed beside it (f32, packed, packed, f32);
+   4p) reads the pair-word frame that ``pack_src_pairs`` makes of the
+   case's source frame (held word for word against its plain version and
+   timed with its bytes bound), is held bit for bit against its packed
+   plain version, must differ from the f32 variant, and is timed beside it
+   (f32, packed, packed, f32);
 3. drive the photometric path -- ``pipeline.patchmatch.run_patchmatch`` on
    the CubeRoom 1024x768x8src scene -- once warm and three times timed, with
    the launch counters zeroed just before and read just after; its median
@@ -34,7 +37,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    phases 3-4 with both bf16 packs on (the defaults), the packed chain
    (seeds and source depths from packed passes), at the same gates, and no
    launch of the f32 kernels; then the photometric pass with each pack
-   alone (its error printed, not gated);
+   alone (its error printed, not gated); each through ``drive_checked``
+   (the first launch of each kernel at each operand shape held bit for bit
+   against its plain version, ``pack_src_pairs`` word for word);
 5. the 96x64x3src golden photometric and geometric passes match the
    reference's committed statistics at drift_gate's 2e-2, the photometric
    one with the packs off and on (the fixture was made with them on);
@@ -100,7 +105,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    geometric pass does not lower the band error when its source depths
    come from the views' photometric passes, so the geometric pass is not
    held below the photometric one); then both passes again with both bf16
-   packs on, at the same gate;
+   packs on, at the same gate, through ``drive_checked``;
 11. the sphere scene: ``run_pipeline`` with ``PipelineConfig()`` defaults on
    6 equirect views of the CubeRoom ring at 1024x512 (two scales, 512x256
    then 1024x512), with the same launch sorting and first-launch checks as
@@ -133,8 +138,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    its launch counts as it exits) on a copy of phase 11's scene: both exit
    0, each runs the round-robin share of every pass, only rank 0 fuses,
    every file equals phase 11's byte for byte (the manifest as sets of
-   entries: ranks mark in completion order), and the ranks' launches add
-   up to phase 11's;
+   entries: ranks mark in completion order), the ranks' launches add up to
+   phase 11's, and in each rank the first launch of each kernel at each
+   operand shape is held bit for bit against its plain version;
 14. the discontinuity golden (tests/test_discontinuity.py): an
    OccludedRoom ring of 4 views at 96x64, key 3, through the exact,
    windowed and rectified paths at the defaults (packed), median relative
@@ -149,8 +155,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    14 in each warm pass.
 Phases 9 and 11-13 run ``PipelineConfig()`` defaults, both bf16 packs on:
 their first-launch checks hold kernels 1p and 4p against the packed plain
-version, and the f32 kernels 1 and 4 must not launch there.  Every kernel
-must have been launched by one of the driven paths.
+version and ``pack_src_pairs`` (once per context: the prior round reuses
+its pass's) against its plain version, and the f32 kernels 1 and 4 must
+not launch there.  Every kernel must have been launched by one of the
+driven paths.
 
 Prints the card's name and power limit, one JSON line of kernel results,
 then, last, ``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is the
@@ -211,8 +219,8 @@ PIPELINE_SCENE = dict(
     label="pinhole", n_views=8, width=1600, height=1200,
     cameras=dict(focal=1440.0, radius=0.25), err_border=6,
     depth_err_max=0.02, min_points=2000, tau=0.08, on_surface_min=0.9,
-    kernels=("rect_ncc_pk", "rect_ncc_geom_pk", "warp_transport",
-             "warp_src_frames", "warp_src_disparities"))
+    kernels=("rect_ncc_pk", "rect_ncc_geom_pk", "pack_src_pairs",
+             "warp_transport", "warp_src_frames", "warp_src_disparities"))
 # phase 10: the sphere operating point (root bench.py:257-261) and the gate
 # of tests/test_sphere_rect.py:119 over the latitude band that LAT_CAP_DEG
 # leaves, for both passes: the geometric pass is not held below the
@@ -231,7 +239,7 @@ SPHERE_PIPELINE_SCENE = dict(
     label="sphere", n_views=6, width=1024, height=512,
     cameras=dict(model="sphere"), err_border=0, depth_err_max=0.08,
     min_points=1500, tau=0.2, on_surface_min=0.7,
-    kernels=("rect_ncc_pk", "rect_ncc_geom_pk"))
+    kernels=("rect_ncc_pk", "rect_ncc_geom_pk", "pack_src_pairs"))
 # the pipelines run PipelineConfig() defaults, both bf16 packs on: the f32
 # variants of kernels 1 and 4 must not launch there
 F32_RECT_KERNELS = ("rect_ncc", "rect_ncc_geom")
@@ -244,9 +252,10 @@ ODD_SCENE = dict(width=95, height=64, n_src=3, focal=80.0, radius=0.35)
 PHOT_KERNELS = ("rect_ncc", "warp_transport", "warp_src_frames")
 GEOM_KERNELS = ("rect_ncc_geom", "warp_transport", "warp_src_frames",
                 "warp_src_disparities")
-PK_PHOT_KERNELS = ("rect_ncc_pk", "warp_transport", "warp_src_frames")
-PK_GEOM_KERNELS = ("rect_ncc_geom_pk", "warp_transport", "warp_src_frames",
-                   "warp_src_disparities")
+PK_PHOT_KERNELS = ("rect_ncc_pk", "pack_src_pairs", "warp_transport",
+                   "warp_src_frames")
+PK_GEOM_KERNELS = ("rect_ncc_geom_pk", "pack_src_pairs", "warp_transport",
+                   "warp_src_frames", "warp_src_disparities")
 # phase 14: the discontinuity golden (tests/test_discontinuity.py: an
 # OccludedRoom ring of 4 views at 96x64, focal 80, key 3) and its gates
 DISCONTINUITY = dict(width=96, height=64, n_views=4, focal=80.0, key=3,
@@ -462,20 +471,43 @@ def check_rect_case(name, rect, normals, ws, parity, p, with_geom):
             rect, normals, ws, p, parity=parity, with_geom=with_geom), 5))
 
 
+def check_src_pairs(name, src):
+    """``pack_src_pairs`` on the frame ``src``: word for word against its
+    plain version; its CUDA-event time with its bytes bound (one f32 read
+    and one word written per element).  Returns (pair frame, numbers)."""
+    import torch
+
+    from acmmp_spherical_torch.ops.kernels import ncc_rect as NR
+
+    pk = NR.pack_src_pairs(src)
+    pl = NR.pack_src_pairs_plain(src)
+    torch.cuda.synchronize()
+    if not torch.equal(pk, pl):
+        raise AssertionError(f"pack_src_pairs {name}: "
+                             f"{int((pk != pl).sum())} words differ from the "
+                             "plain version")
+    return pk, dict(shape=list(src.shape), max_abs_err=0.0,
+                    ms=cuda_ms(lambda: NR.pack_src_pairs(src), 20),
+                    plain_ms=cuda_ms(lambda: NR.pack_src_pairs_plain(src), 3),
+                    bound=bound(nbytes(src, pk), 0))
+
+
 def check_packed_case(name, rargs, sd, bnd):
     """Kernel 1p (``sd`` holding sdisp: 4p), the packed-tap variant, on the
-    operands ``rargs`` of an f32 case: bit for bit against its plain
-    version with the same flag; its CUDA-event time beside the f32
-    variant's on the same operands (in turns f32, packed, packed, f32),
-    with kernel 1's bound."""
+    operands ``rargs`` of an f32 case and the pair-word frame of their
+    source frame (``check_src_pairs``, under ``pairs``): bit for bit
+    against its plain version with the same flag; its CUDA-event time
+    beside the f32 variant's on the same operands (in turns f32, packed,
+    packed, f32), with kernel 1's bound."""
     import torch
 
     from acmmp_spherical_torch.ops.kernels import ncc_rect as NR
 
     *args, p = rargs
+    pk, pairs = check_src_pairs(name, args[4])
     pp = dataclasses.replace(p, rect_tap_pack=True)
     fp = dataclasses.replace(p, rect_tap_pack=False)
-    k = NR.rect_ncc(*args, pp, **sd)
+    k = NR.rect_ncc(*args, pp, **sd, src_pk=pk)
     pl = NR.rect_ncc_plain(*args, pp, **sd)
     f32 = NR.rect_ncc(*args, fp, **sd)
     torch.cuda.synchronize()
@@ -484,19 +516,32 @@ def check_packed_case(name, rargs, sd, bnd):
                              f"the plain version, max err {_max_err(k, pl)}")
     cost, cost32 = (k[0], f32[0]) if sd else (k, f32)
     changed = float((cost != cost32).float().mean())
-    t = [cuda_ms(lambda q=q: NR.rect_ncc(*args, q, **sd), 5)
-         for q in (fp, pp, pp, fp)]
+    t = [cuda_ms(lambda q=q, x=x: NR.rect_ncc(*args, q, **sd, **x), 5)
+         for q, x in ((fp, {}), (pp, dict(src_pk=pk)), (pp, dict(src_pk=pk)),
+                      (fp, {}))]
     out = dict(ms=(t[1] + t[2]) / 2, f32_ms=(t[0] + t[3]) / 2,
                ms_turns=t, plain_ms=cuda_ms(
                    lambda: NR.rect_ncc_plain(*args, pp, **sd), 1),
                bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=0.0,
-               changed_fraction=changed)
+               changed_fraction=changed, pairs=pairs)
     log(f"rect_ncc{'_geom' if sd else ''}_pk {name}: bit-identical to its "
         f"plain version; {out}")
     if not changed > 0.0:
         raise AssertionError(f"rect_ncc packed {name}: equals the f32 "
                              "variant everywhere")
     return out
+
+
+def pairs_entry(cases: dict, ptxas: dict):
+    """The kernel entry of ``pack_src_pairs`` over the frames of the packed
+    cases {name: case}: the first case's numbers, every frame's under
+    ``cases`` and ptxas' registers and spills."""
+    first = next(iter(cases.values()))["pairs"]
+    e = kernel_entry("pack_src_pairs.cu", "ncc_rect.py:297", 0.0,
+                     first["ms"], first["plain_ms"], first["bound"])
+    e.update(cases={n: c["pairs"] for n, c in cases.items()},
+             ptxas=ptxas.get("pack_src_pairs", {}))
+    return e
 
 
 def ptxas_of(ptxas: dict, variant: str) -> dict:
@@ -521,7 +566,8 @@ def rect_ptxas(path) -> dict:
     """{variant: {registers, spill_stores, spill_loads}} of the
     rect_ncc_kernel instantiations in the build's ptxas log; a variant is
     "phot" or "geom", "_pk" for packed taps, then "_default" (the unrolled
-    11x11 stride-2 taps) or "_runtime" (tap bounds read at run time)."""
+    11x11 stride-2 taps) or "_runtime" (tap bounds read at run time); and
+    of the pair-frame kernel, "pack_src_pairs"."""
     import re
 
     out, cur = {}, None
@@ -536,6 +582,8 @@ def rect_ptxas(path) -> dict:
                 ("geom" if t.group(1) == "1" else "phot")
                 + ("_pk" if t.group(2) == "1" else "")
                 + ("_runtime" if t.group(3) == "0" else "_default"))
+            if "pack_src_pairs_kernel" in m.group(1):
+                cur = "pack_src_pairs"
             if cur is not None:
                 out[cur] = {}
             continue
@@ -641,6 +689,8 @@ def check_phot_kernels(inputs, params, results):
     results["rect_ncc_pk"] = packed_entry(
         {n: results["cases"][n]["packed"] for n in names}, results["ptxas"],
         "phot_pk")
+    results["pack_src_pairs"] = pairs_entry(
+        {n: results["cases"][n]["packed"] for n in names}, results["ptxas"])
 
 
 def check_geom_kernels(inputs, params, seeds, results):
@@ -680,6 +730,8 @@ def check_geom_kernels(inputs, params, seeds, results):
     results["rect_ncc_geom_pk"] = packed_entry(
         {n: results["cases"][n]["packed"] for n in names}, results["ptxas"],
         "geom_pk")
+    results["pack_src_pairs"]["geom_cases"] = {
+        n: results["cases"][n]["packed"]["pairs"] for n in names}
 
 
 def check_sphere_case(name, ctx, normals, ws, parity, p, with_geom):
@@ -832,14 +884,17 @@ def run_sphere_phase(dev, results):
                      bound_by=cases[nm]["bound"][1]) for nm in names}
         results[k + "_pk"]["sphere_cases"] = {
             nm: cases[nm]["packed"] for nm in names}
+    results["pack_src_pairs"]["sphere_cases"] = {
+        nm: c["packed"]["pairs"] for nm, c in cases.items()}
 
     # the same passes with both bf16 packs on (the defaults), beside the
     # f32 ones: the packed chain (seeds and source depths from packed
     # passes, keys as above)
     pk_params = dataclasses.replace(params, rect_tap_pack=True,
                                     rect_backmap_pack=True)
-    pres, pphot = drive("sphere photometric packed", ("rect_ncc_pk",),
-                        lambda r: run_patchmatch(inputs, pk_params, r))
+    pres, pphot = drive_checked(
+        "sphere photometric packed", ("rect_ncc_pk", "pack_src_pairs"),
+        lambda r: run_patchmatch(inputs, pk_params, r))
     pd = pres[0].cpu().numpy()
     if not np_finite(pd) or pphot["launches"]["rect_ncc"]:
         raise AssertionError("packed sphere pass: depth not finite, or the "
@@ -850,9 +905,9 @@ def run_sphere_phase(dev, results):
         inputs, pk_params, key_base=2000))
     pseeds = dict(seed_normal_world=pres[1], seed_depth=pres[0])
     pg_params = pk_params.with_geom(multi_geometry=False)
-    pgres, pgeom = drive("sphere geometric packed", ("rect_ncc_geom_pk",),
-                         lambda r: run_patchmatch(pg_inputs, pg_params,
-                                                  50 + r, **pseeds))
+    pgres, pgeom = drive_checked(
+        "sphere geometric packed", ("rect_ncc_geom_pk", "pack_src_pairs"),
+        lambda r: run_patchmatch(pg_inputs, pg_params, 50 + r, **pseeds))
     pgd = pgres[0].cpu().numpy()
     if not np_finite(pgd) or pgeom["launches"]["rect_ncc_geom"]:
         raise AssertionError("packed sphere geometric pass: depth not "
@@ -1248,6 +1303,7 @@ KERNEL_OF = {
     "rect_ncc": lambda a: (("rect_ncc" if a.get("sdisp") is None
                             else "rect_ncc_geom")
                            + ("_pk" if a["params"].rect_tap_pack else "")),
+    "pack_src_pairs": lambda a: "pack_src_pairs",
     "warp_src_frames": lambda a: "warp_src_frames",
     "warp_src_disparities": lambda a: "warp_src_disparities",
     "ncc_window": lambda a: ("ncc_window" if a.get("dep") is None
@@ -1257,9 +1313,9 @@ KERNEL_OF = {
 
 @contextlib.contextmanager
 def checked_kernels(scopes):
-    """Route the wrappers of kernels 1-6 through ``scopes.check``: the
-    wrapper runs (and counts its launch) as always, then its plain version
-    runs on the same operands, uncounted."""
+    """Route the wrappers of kernels 1-6 and of ``pack_src_pairs`` through
+    ``scopes.check``: the wrapper runs (and counts its launch) as always,
+    then its plain version runs on the same operands, uncounted."""
     import inspect
 
     import torch
@@ -1288,6 +1344,7 @@ def checked_kernels(scopes):
     swaps = [(NR, "coefficient_transport", NR.coefficient_transport_plain),
              (NR, "rect_ncc", NR.rect_ncc_plain),
              (SR, "rect_ncc", NR.rect_ncc_plain),
+             (NR, "pack_src_pairs", NR.pack_src_pairs_plain),
              (WI, "warp_src_frames", WI.warp_src_frames_plain),
              (WI, "warp_src_disparities", WI.warp_src_disparities_plain),
              (NW, "ncc_window", NW.ncc_window_plain)]
@@ -1782,23 +1839,37 @@ def run_hostile_phase(dev):
 
 RANK_SCRIPT = """
 import json, runpy, sys
+import chip_smoke
 from acmmp_spherical_torch.ops.kernels import _lib
+scopes = chip_smoke.LaunchScopes()
 try:
-    runpy.run_module("acmmp_spherical_torch", run_name="__main__",
-                     alter_sys=True)
+    with chip_smoke.checked_kernels(scopes):
+        runpy.run_module("acmmp_spherical_torch", run_name="__main__",
+                         alter_sys=True)
 finally:
     print("LAUNCHES " + json.dumps(_lib.LAUNCHES), flush=True)
+    checks = {}
+    for (_, _, _, k, _), err in scopes.checks.items():
+        c = checks.setdefault(k, dict(shapes=0, max_abs_err=0.0))
+        c["shapes"] += 1
+        c["max_abs_err"] = max(c["max_abs_err"], err)
+    print("CHECKS " + json.dumps(dict(checks=checks,
+                                      failures=scopes.failures)), flush=True)
 """
 
 
 def run_distributed_phase(sc, work, serial):
     """Phase 13: ``python -m acmmp_spherical_torch reconstruct
     --distributed`` as two ranks on the one card (a gloo group on
-    127.0.0.1) on a copy of the phase-11 scene; each rank prints its launch
-    counts as it exits.  Both must exit 0, run the round-robin share of
-    every pass, and only rank 0 may fuse; the files must equal phase 11's
-    byte for byte (the manifest as sets: ranks mark in completion order)
-    and the two ranks' launches add up to phase 11's."""
+    127.0.0.1) on a copy of the phase-11 scene, each inside
+    ``checked_kernels`` (the first launch of each kernel at each operand
+    shape held against its plain version); each rank prints its launch
+    counts and its checks as it exits.  Both must exit 0, run the
+    round-robin share of every pass, and only rank 0 may fuse; the files
+    must equal phase 11's byte for byte (the manifest as sets: ranks mark
+    in completion order), the two ranks' launches add up to phase 11's,
+    and every kernel a rank launched must have been checked there, with no
+    check failed."""
     import re
     import socket
 
@@ -1829,7 +1900,7 @@ def run_distributed_phase(sc, work, serial):
     if rcs != [0, 0]:
         raise AssertionError(f"phase 13 ranks exited {rcs}: "
                              + " | ".join(o[-2000:] for o in outs))
-    shares, launches = [], []
+    shares, launches, checks = [], [], {}
     for r, o in enumerate(outs):
         share = {int(m) for m in re.findall(r"pass image=(\d+)", o)}
         shares.append(sorted(share))
@@ -1837,6 +1908,17 @@ def run_distributed_phase(sc, work, serial):
             raise AssertionError(f"rank {r} ran views {sorted(share)}")
         launches.append(json.loads(re.findall(r"^LAUNCHES (.*)$", o,
                                               re.M)[-1]))
+        ck = json.loads(re.findall(r"^CHECKS (.*)$", o, re.M)[-1])
+        unchecked = [k for k, v in launches[-1].items()
+                     if v and k != "window_sample" and k not in ck["checks"]]
+        if ck["failures"] or unchecked:
+            raise AssertionError(f"phase 13 rank {r}: check failures "
+                                 f"{ck['failures']}, kernels launched but "
+                                 f"never checked {unchecked}")
+        for k, c in ck["checks"].items():
+            t = checks.setdefault(k, dict(shapes=0, max_abs_err=0.0))
+            t["shapes"] += c["shapes"]
+            t["max_abs_err"] = max(t["max_abs_err"], c["max_abs_err"])
     fused = ["fusion wrote" in o for o in outs]
     if fused != [True, False]:
         raise AssertionError(f"fusion ran on ranks {fused}")
@@ -1850,10 +1932,12 @@ def run_distributed_phase(sc, work, serial):
         raise AssertionError(f"phase 13 launches {total}, phase 11 "
                              f"{serial['launches']}")
     out = dict(wall_s=wall_s, shares=shares, launches=total,
-               rank_launches=launches)
-    log(f"phase 13: two ranks on one card {wall_s:.2f} s (processes "
-        f"included) against {serial['wall_s']:.2f} s serial (phase 11); "
-        f"shares {shares}; files equal phase 11's; launches {total}")
+               rank_launches=launches, plain_checks=checks)
+    log(f"phase 13: two ranks on one card {wall_s:.2f} s (processes and "
+        f"first-launch checks included) against {serial['wall_s']:.2f} s "
+        f"serial (phase 11); shares {shares}; files equal phase 11's; "
+        f"launches {total}; first-launch checks {checks}, all "
+        "bit-identical")
     return out
 
 
@@ -1954,16 +2038,17 @@ def main() -> int:
     # (seeds and source depths from packed passes), at the f32 gates
     pk_params = dataclasses.replace(params, rect_tap_pack=True,
                                     rect_backmap_pack=True)
-    pout, pphot = drive("photometric packed", PK_PHOT_KERNELS,
-                        lambda r: run_patchmatch(inputs, pk_params, r))
+    pout, pphot = drive_checked(
+        "photometric packed", PK_PHOT_KERNELS,
+        lambda r: run_patchmatch(inputs, pk_params, r))
     prel = median_rel_err(pout[0], gt[0])
     pg_inputs = dataclasses.replace(
         inputs, src_depths=source_depths(inputs, pk_params))
     pg_params = pk_params.with_geom(multi_geometry=False)
-    pgout, pgeom = drive("geometric packed", PK_GEOM_KERNELS,
-                         lambda r: run_patchmatch(
-                             pg_inputs, pg_params, 100 + r,
-                             seed_normal_world=pout[1], seed_depth=pout[0]))
+    pgout, pgeom = drive_checked(
+        "geometric packed", PK_GEOM_KERNELS, lambda r: run_patchmatch(
+            pg_inputs, pg_params, 100 + r, seed_normal_world=pout[1],
+            seed_depth=pout[0]))
     pgrel = median_rel_err(pgout[0], gt[0])
     del pg_inputs
     log(f"packed: photometric median rel depth err {prel} (f32 {rel}), "
@@ -1977,13 +2062,16 @@ def main() -> int:
                              f"{pgrel}, gates {DEPTH_ERR_MAX} and below the "
                              "photometric")
     # each pack alone, on the photometric pass (numbers only, no gate)
-    one_pack = {}
+    one_pack, one_runs = {}, []
     for flag in ("rect_tap_pack", "rect_backmap_pack"):
         one = dataclasses.replace(params, **{flag: True})
-        o, run = drive(f"photometric, {flag} alone", PHOT_KERNELS[1:],
-                       lambda r: run_patchmatch(inputs, one, r), reps=1)
+        o, run = drive_checked(f"photometric, {flag} alone",
+                               PHOT_KERNELS[1:],
+                               lambda r: run_patchmatch(inputs, one, r),
+                               reps=1)
         one_pack[flag] = dict(median_rel_depth_err=median_rel_err(o[0], gt[0]),
                               pass_s=run["pass_s"], launches=run["launches"])
+        one_runs.append(run)
     log(f"photometric with one pack on: {one_pack}")
 
     # phase 5: golden passes against the reference's fixtures
@@ -2123,16 +2211,18 @@ def main() -> int:
 
     # phase 15: the hostile bench pass, packs on and off
     hostile = run_hostile_phase(dev)
-    for p_ in (pipe, spipe, bpipe["batched_checked"], bpipe["multichip"],
-               *disc["paths"].values(), *hostile["paths"].values()):
+    for p_ in (pphot, pgeom, *one_runs, sphere["phot_pk"], sphere["geom_pk"],
+               pipe, spipe, bpipe["batched_checked"], bpipe["multichip"],
+               dpipe, *disc["paths"].values(), *hostile["paths"].values()):
         for key, c in p_["plain_checks"].items():
             e = results[key.rsplit(" ", 1)[-1]]
             e["max_abs_err"] = max(e["max_abs_err"], c["max_abs_err"])
             e["pipeline_checks"] = e.get("pipeline_checks", 0) + c["shapes"]
 
     names = ("rect_ncc", "rect_ncc_geom", "rect_ncc_pk", "rect_ncc_geom_pk",
-             "warp_transport", "warp_src_frames", "warp_src_disparities",
-             "ncc_window", "ncc_window_geom", "window_sample")
+             "pack_src_pairs", "warp_transport", "warp_src_frames",
+             "warp_src_disparities", "ncc_window", "ncc_window_geom",
+             "window_sample")
     paths = (phot, geom, pphot, pgeom, win, wgeom, samp, pipe,
              sphere["phot"], sphere["geom"], sphere["phot_pk"],
              sphere["geom_pk"], spipe, bpipe["batched_checked"],

@@ -9,7 +9,9 @@ JAX, so they also run on a GPU host without it:
 Tolerances (as chip_smoke.py): warp_transport (``coefficient_transport``,
 every candidate count, map and pass, and on edge fields) bit-exact; rect_ncc
 (both variants, with f32 and with packed taps, every candidate count and
-tap pattern; a source frame of bf16 ties and NaN words) bit-exact;
+tap pattern, pinhole and sphere operands; a source frame of bf16 ties and
+NaN words) bit-exact; pack_src_pairs (the packed taps' pair-word frame, of
+those frames) word for word;
 warp_src_frames and warp_src_disparities (gate on and off, bench and odd
 frames; source depths with zeros, negatives and a NaN) bit-exact;
 ncc_window (both variants, every field count and tap pattern) bit-exact;
@@ -118,7 +120,8 @@ def test_cuda_kernels_match_plain(cuda):
     assert torch.equal(fk, fp) and bool((fk > SENTINEL_THRESH).any())
     assert _lib.LAUNCHES == {"rect_ncc": 1, "rect_ncc_geom": 0,
                              "rect_ncc_pk": 0, "rect_ncc_geom_pk": 0,
-                             "warp_transport": 1, "warp_src_frames": 1,
+                             "pack_src_pairs": 0, "warp_transport": 1,
+                             "warp_src_frames": 1,
                              "warp_src_disparities": 0, "ncc_window": 0,
                              "ncc_window_geom": 0, "window_sample": 0}
 
@@ -159,7 +162,8 @@ def test_geom_kernels_match_plain(cuda):
     assert bool((gk < params.geom_max_cost).any())
     assert _lib.LAUNCHES == {"rect_ncc": 0, "rect_ncc_geom": 1,
                              "rect_ncc_pk": 0, "rect_ncc_geom_pk": 0,
-                             "warp_transport": 1, "warp_src_frames": 0,
+                             "pack_src_pairs": 0, "warp_transport": 1,
+                             "warp_src_frames": 0,
                              "warp_src_disparities": 1, "ncc_window": 0,
                              "ncc_window_geom": 0, "window_sample": 0}
 
@@ -167,7 +171,8 @@ def test_geom_kernels_match_plain(cuda):
 def _chunk_operands(cuda, C, pattern, **change):
     """Kernel 1's operands on the golden geometric problem: C plane fields
     around the seed on the parity-0 map (w scaled by 1 + 0.005 k), with
-    ``pattern``'s taps; returns (args, sdisp, params, maps)."""
+    ``pattern``'s taps; returns (args, sdisp, params, maps, the context's
+    pair-word frame: None unless ``rect_tap_pack``)."""
     from acmmp_spherical_torch.core import geometry as G
 
     inputs, params, seeds, _ = golden_geom_problem(cuda)
@@ -187,7 +192,31 @@ def _chunk_operands(cuda, C, pattern, **change):
     D, AB = NR.coefficient_transport(rect, maps, normals, ws)
     args = (rect.srow, rect.tile_oy, rect.tile_ox, rect.rect_ref,
             rect.rect_src, D, AB, maps.fwd_valid)
-    return args, rect.rect_sdisp, params, maps
+    return args, rect.rect_sdisp, params, maps, rect.rect_src_pk
+
+
+def _sphere_chunk_operands(cuda, C):
+    """Kernel 1's operands on the golden SPHERE problem (parity 0, fields
+    around the ground truth), packed taps on: (args, sdisp, params, maps,
+    the context's pair-word frame)."""
+    from acmmp_spherical_torch.bench import (
+        SPHERE_GOLDEN_SCENE, golden_geom_fields, make_sphere_problem,
+    )
+    from acmmp_spherical_torch.ops import sphere_rect as SR
+
+    inputs, params, depths, normals = make_sphere_problem(
+        **SPHERE_GOLDEN_SCENE, device=cuda, packs=True)
+    src = torch.as_tensor(golden_geom_fields(depths, normals)[0], device=cuda)
+    ctx = prepare_inputs(dataclasses.replace(inputs, src_depths=src),
+                         params.with_geom(False)).rect
+    maps = ctx.maps[1]
+    ns, ws = _sphere_fields(inputs, depths, normals, 0, C)
+    D, AB = NR.warp_transport_plain(
+        *SR.sphere_coefficient_tables(ctx, ns, ws, 0), maps.fwd_idx,
+        maps.fwd_valid)
+    args = (ctx.srow, ctx.tile_oy, ctx.tile_ox, ctx.rect_ref, ctx.rect_src,
+            D, AB, maps.fwd_valid)
+    return args, ctx.rect_sdisp, params, maps, ctx.rect_src_pk
 
 
 @pytest.mark.gpu
@@ -199,7 +228,7 @@ def test_rect_ncc_chunks_match_plain(cuda, C, with_geom, pattern):
     version for C at and across the chunk edges, both variants, on the
     default tap pattern and on 7x7 at stride 1 (49 taps, the instantiation
     with runtime tap bounds)."""
-    args, sdisp, params, maps = _chunk_operands(cuda, C, pattern)
+    args, sdisp, params, maps, _ = _chunk_operands(cuda, C, pattern)
     kw = dict(sdisp=sdisp) if with_geom else {}
     _lib.reset_launch_counts()
     k = NR.rect_ncc(*args, params, **kw)
@@ -212,36 +241,79 @@ def test_rect_ncc_chunks_match_plain(cuda, C, with_geom, pattern):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("pattern", ["11x11s2", "7x7s1"])
+@pytest.mark.parametrize("pattern", ["11x11s2", "7x7s1", "sphere"])
 @pytest.mark.parametrize("with_geom", [False, True], ids=["phot", "geom"])
 @pytest.mark.parametrize("C", [1, 5, 9])
 def test_rect_ncc_packed_taps_match_plain(cuda, C, with_geom, pattern):
-    """The packed-tap variant (rect_tap_pack, kernels 1p and 4p) against
-    the packed plain version, bit for bit, counted under its own name; it
-    differs from the f32 variant on the same operands."""
-    args, sdisp, params, maps = _chunk_operands(cuda, C, pattern,
-                                                rect_tap_pack=True)
+    """The packed-tap variant (rect_tap_pack, kernels 1p and 4p) on the
+    context's pair-word frame against the packed plain version (which
+    rounds the f32 frame), bit for bit, counted under its own name, on
+    pinhole and (``sphere``) pole-rotated operands; the frame equals its
+    plain version word for word.  The f32 variant of the same call is
+    untouched: bit for bit its plain version, and different from the
+    packed one."""
+    if pattern == "sphere":
+        args, sdisp, params, maps, pk = _sphere_chunk_operands(cuda, C)
+    else:
+        args, sdisp, params, maps, pk = _chunk_operands(
+            cuda, C, pattern, rect_tap_pack=True)
+    assert torch.equal(pk, NR.pack_src_pairs_plain(args[4]))
     kw = dict(sdisp=sdisp) if with_geom else {}
     _lib.reset_launch_counts()
-    k = NR.rect_ncc(*args, params, **kw)
+    k = NR.rect_ncc(*args, params, **kw, src_pk=pk)
     p = NR.rect_ncc_plain(*args, params, **kw)
     torch.cuda.synchronize()
     for a, b in zip(k, p) if with_geom else ((k, p),):
         assert a.shape == (C, *maps.fwd_valid.shape) and torch.equal(a, b)
+    assert bool(((p[0] if with_geom else p) < params.cost_max).any())
     name = "rect_ncc_geom" if with_geom else "rect_ncc"
     assert _lib.LAUNCHES[name + "_pk"] == 1 and _lib.LAUNCHES[name] == 0
-    f32 = NR.rect_ncc(*args, dataclasses.replace(params, rect_tap_pack=False),
-                      **kw)
+    with pytest.raises(ValueError, match="src_pk"):
+        NR.rect_ncc(*args, params, **kw)
+    f32p = dataclasses.replace(params, rect_tap_pack=False)
+    f32 = NR.rect_ncc(*args, f32p, **kw)
+    f32_plain = NR.rect_ncc_plain(*args, f32p, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(f32, f32_plain) if with_geom else ((f32, f32_plain),):
+        assert torch.equal(a, b)
+    assert _lib.LAUNCHES[name] == 1 and _lib.LAUNCHES[name + "_pk"] == 1
     assert not torch.equal(f32[0] if with_geom else f32,
                            k[0] if with_geom else k)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("frame", ["pinhole", "sphere", "special"])
+def test_pack_src_pairs_matches_plain(cuda, frame):
+    """pack_src_pairs on the card against its plain version, word for word,
+    one launch per call: the golden pinhole and SPHERE contexts' frames,
+    and a frame of special words (ties, infinities, NaN of both signs,
+    subnormals) at an odd width."""
+    if frame == "pinhole":
+        src = _chunk_operands(cuda, 1, "11x11s2")[0][4]
+    elif frame == "sphere":
+        src = _sphere_chunk_operands(cuda, 1)[0][4]
+    else:
+        words = np.array([0x3F808000, 0x3F818000, 0x7F7FFFFF, 0xFF800000,
+                          0x7FC00001, 0xFF812345, 0x80018000, 0xC61C4000],
+                         dtype=np.uint32)
+        rng = np.random.default_rng(5)
+        src = torch.from_numpy(rng.choice(words, (3, 7, 131)).view(
+            np.float32).copy()).to(cuda)
+    _lib.reset_launch_counts()
+    got = NR.pack_src_pairs(src)
+    want = NR.pack_src_pairs_plain(src)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert _lib.LAUNCHES["pack_src_pairs"] == 1
+
+
+@pytest.mark.gpu
 def test_packed_taps_bit_rule_on_ties_and_nan(cuda):
     """round_bf16 writes the same words on the card as on the CPU (ties to
-    even, infinities kept, NaN -> 0x7FC0 with its sign), and the packed
-    kernel on a source frame whose values all sit on a bf16 tie, with NaN
-    words in it, equals its plain version bit for bit."""
+    even, infinities kept, NaN -> 0x7FC0 with its sign); pack_src_pairs of a
+    source frame whose values all sit on a bf16 tie, with NaN words in it,
+    equals its plain version word for word, and the packed kernel on that
+    pair frame equals its plain version bit for bit."""
     words = np.array([0x3F808000, 0x3F818000, 0x3F80FFFF, 0x7F7FFFFF,
                       0xFF800000, 0x7FC00001, 0xFF812345, 0x80018000],
                      dtype=np.uint32)
@@ -253,8 +325,8 @@ def test_packed_taps_bit_rule_on_ties_and_nan(cuda):
         want, [0x3F800000, 0x3F820000, 0x3F810000, 0x7F800000, 0xFF800000,
                0x7FC00000, 0xFFC00000, 0x80020000])
 
-    args, _, params, _ = _chunk_operands(cuda, 5, "11x11s2",
-                                         rect_tap_pack=True)
+    args, _, params, _, _ = _chunk_operands(cuda, 5, "11x11s2",
+                                            rect_tap_pack=True)
     src = args[4]
     bits = src.view(torch.int32)
     real = src > SENTINEL_THRESH
@@ -264,10 +336,13 @@ def test_packed_taps_bit_rule_on_ties_and_nan(cuda):
     flat[::97] = torch.where(real.reshape(-1)[::97], 0x7FC00001, flat[::97])
     args = args[:4] + (tie.view(torch.float32),) + args[5:]
     _lib.reset_launch_counts()
-    k = NR.rect_ncc(*args, params)
+    pk = NR.pack_src_pairs(args[4])
+    assert torch.equal(pk, NR.pack_src_pairs_plain(args[4]))
+    k = NR.rect_ncc(*args, params, src_pk=pk)
     p = NR.rect_ncc_plain(*args, params)
     torch.cuda.synchronize()
     assert torch.equal(k, p) and _lib.LAUNCHES["rect_ncc_pk"] == 1
+    assert _lib.LAUNCHES["pack_src_pairs"] == 1
     assert bool((k < params.cost_max).any())
     f32 = NR.rect_ncc(*args, dataclasses.replace(params, rect_tap_pack=False))
     assert not torch.equal(f32, k)
