@@ -148,7 +148,10 @@ class PipelineConfig:
     ``batch_problems``: run each pass in chunks of problems over a mesh of
     device slots (``pipeline/batch_runner``): "on", "off", or "auto" (on
     when the pipeline runs on CUDA with more than one local device, in a
-    single-process run)."""
+    single-process run).  ``tile_shard``: cut each depth map along its
+    width into this many tiles over a mesh of slots (``parallel/tile.py``),
+    for frames too large for one device; it forces the exact path and
+    turns batching off."""
 
     patchmatch: PatchMatchParams = PatchMatchParams()
     prior: PriorConfig = PriorConfig()
@@ -166,3 +169,4 @@ class PipelineConfig:
     skip_if_complete: bool = False   # resume: skip passes in the manifest
     rect_unify: "tuple | None" = None
     batch_problems: str = "auto"
+    tile_shard: int = 1

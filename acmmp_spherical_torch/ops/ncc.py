@@ -17,6 +17,7 @@ angular distance ``(dlon cos(lat), dlat)`` with a radian sigma
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -51,13 +52,16 @@ class RefTapContext:
 
 
 def ref_tap_context(ref_img: torch.Tensor, ref_cam: Camera,
-                    params: PatchMatchParams) -> RefTapContext:
-    """Tap intensities and bilateral weights of the reference view.  The
-    weight keeps the reference's *linear* distances in the exponent
+                    params: PatchMatchParams, *, x0: int = 0,
+                    x1: Optional[int] = None) -> RefTapContext:
+    """Tap intensities and bilateral weights of the reference view on the
+    grid of its columns ``[x0, x1)`` (default: every column; a width tile
+    of the tile-parallel pass samples the whole image at its own pixels).
+    The weight keeps the reference's *linear* distances in the exponent
     (ComputeBilateralWeight, ACMMP.cu:398-403)."""
     H, W = ref_img.shape
     dev = ref_img.device
-    xs, ys = grid_coords(H, W, dev)
+    xs, ys = grid_coords(H, (W if x1 is None else x1) - x0, dev, x0)
     offsets = tap_offsets(params, dev)
     wd, ht = ref_cam.width, ref_cam.height
     sphere = ref_cam.model == SPHERE

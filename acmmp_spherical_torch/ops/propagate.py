@@ -11,6 +11,12 @@ parity-masked commit.  SPHERE problems take the pole-rotated rectified path
 seam in the candidate, view-selection and filter stencils; a problem that
 mixes SPHERE and PINHOLE cameras stays on the exact path.
 
+A ``Tile`` runs the init, the half-step and the extraction of the exact
+path on a width tile of the frame (``parallel/tile.py``): the tile's pixels
+keep their frame coordinates and draw their columns of the frame's random
+numbers (``rng.Cols``), so each pixel computes what the one-slot pass
+computes there.
+
 The reference's documented intended-semantics fixes carry over (see its
 module docstring): the running hypothesis starts at the centre pixel,
 prior-mode acceptance updates it coherently, invalid candidates cost +inf,
@@ -70,6 +76,34 @@ class PatchMatchInputs:
     prior_w: Optional[torch.Tensor] = None       # (H, W)
     prior_mask: Optional[torch.Tensor] = None    # (H, W) bool
     rect: Optional[object] = None  # ops/rectify.RectContext once prepared
+
+
+@dataclasses.dataclass(frozen=True)
+class Tile:
+    """A width tile of a frame ``width`` columns wide: the core columns
+    ``[x0, x1)`` that a slot of the tile-parallel pass updates, and ``lo``,
+    the number of halo columns before the core in the state a half-step is
+    given (the state holds the core and its halos; the result holds the
+    core).  ``x0`` is even, so the checkerboard packing's local colour is
+    the frame's."""
+
+    x0: int
+    x1: int
+    width: int
+    lo: int = 0
+
+    @property
+    def n(self) -> int:
+        return self.x1 - self.x0
+
+
+def check_exact_path(params: PatchMatchParams) -> None:
+    """A width tile runs the exact path only: the windowed and rectified
+    kernels are built for whole frames."""
+    if params.fast_ncc or params.rect_ncc:
+        raise ValueError("a width tile runs the exact path only (fast_ncc "
+                         "and rect_ncc off), as the tile-parallel pass and "
+                         "the pipeline's --tile-shard mode do")
 
 
 def _check_params(params: PatchMatchParams) -> None:
@@ -267,7 +301,8 @@ def _restricted(cost, prior_wt, params):
 def initialize_state(inputs: PatchMatchInputs, params: PatchMatchParams,
                      key, *, prev_state: Optional[PlaneState] = None,
                      seed_normal_world=None, seed_depth=None,
-                     ctx: Optional[RefTapContext] = None) -> PlaneState:
+                     ctx: Optional[RefTapContext] = None,
+                     tile: Optional[Tile] = None) -> PlaneState:
     """The initial plane field and its cost (reference RandomInitialization):
     random planes (mode a); in a planar-prior pass (``prev_state`` and the
     prior fields of ``inputs``) the prior plane perturbed by up to 3 x
@@ -277,12 +312,18 @@ def initialize_state(inputs: PatchMatchInputs, params: PatchMatchParams,
     (H, W, 3), depths (H, W)) rebased into ref-cam planes (ACMMP.cu:780-793).
     The cost comes from the rectified kernel (window ``rect_init_win``) when
     it covers the field -- ``rect_init``, or a seeded field -- and from the
-    exact path otherwise (``ctx`` is built when not given)."""
+    exact path otherwise (``ctx`` is built when not given).  With ``tile``
+    the state, ``prev_state``, the seed and prior fields and ``ctx`` cover
+    the tile's core columns (exact path only)."""
     _check_params(params)
     H, W = inputs.ref_image.shape
     cam = inputs.ref_cam
     dev = inputs.ref_image.device
-    xs, ys = grid_coords(H, W, dev)
+    x0, cols = 0, None
+    if tile is not None:
+        check_exact_path(params)
+        x0, W, cols = tile.x0, tile.n, R.Cols(tile.x0, tile.width)
+    xs, ys = grid_coords(H, W, dev, x0)
     if params.planar_prior:
         if prev_state is None or inputs.prior_mask is None:
             raise ValueError(
@@ -292,10 +333,10 @@ def initialize_state(inputs: PatchMatchInputs, params: PatchMatchParams,
         w_prior = inputs.prior_w
         w_lo = (1.0 - 3.0 * pert) * w_prior
         w_hi = (1.0 + 3.0 * pert) * w_prior
-        u = R.uniform(k1, tuple(w_prior.shape), dev)
+        u = R.uniform(k1, tuple(w_prior.shape), dev, cols=cols)
         w_pert = w_lo + u * (w_hi - w_lo)
         n_pert = R.perturbed_normal(k2, cam, xs, ys, inputs.prior_normal,
-                                    3.0 * pert * torch.pi)
+                                    3.0 * pert * torch.pi, cols)
         use_prior = inputs.prior_mask & (prev_state.cost >= 0.1)
         normal = torch.where(use_prior[..., None], n_pert, prev_state.normal)
         w = torch.where(use_prior, w_pert, prev_state.w)
@@ -306,14 +347,16 @@ def initialize_state(inputs: PatchMatchInputs, params: PatchMatchParams,
         w = G.dist_to_origin(cam, xs, ys, seed_depth, normal)
     else:
         dmin, dmax = _depth_range(inputs)
-        normal, w = R.random_plane_hypothesis(key, cam, xs, ys, dmin, dmax)
+        normal, w = R.random_plane_hypothesis(key, cam, xs, ys, dmin, dmax,
+                                              cols)
     if not needs_tap_context(inputs, params):
         p0 = dataclasses.replace(params, rect_win_w=params.rect_init_win)
         cost_vec = _batched_cost_vectors(inputs, None, p0, normal[None],
                                          w[None])[0][0]
     else:
         if ctx is None:
-            ctx = ref_tap_context(inputs.ref_image, cam, params)
+            ctx = ref_tap_context(inputs.ref_image, cam, params, x0=x0,
+                                  x1=x0 + W)
         cost_vec = _masked(inputs, multiview_ncc(
             inputs.src_images, inputs.src_cams, cam, normal, w, ctx, params),
             params.cost_max)
@@ -323,27 +366,34 @@ def initialize_state(inputs: PatchMatchInputs, params: PatchMatchParams,
                       pre_cost=cost)
 
 
-def _slab_uniform(k, shape, dev):
+def _slab_uniform(k, shape, dev, cols: Optional[R.Cols] = None):
     """Tile-slab uniforms: every (8, 128) tile draws from one slab of width
     1/16 (chosen uniformly), so a random-depth field is tile-smooth and the
-    kernels' windows cover it; the per-pixel marginal stays uniform."""
+    kernels' windows cover it; the per-pixel marginal stays uniform.
+    ``cols``: the grid's columns in the frame's draw (a slab keeps its
+    index in the frame, so a tile edge may cut a slab)."""
     H_, W_ = shape
+    x0, Wf = (0, W_) if cols is None else (cols.x0, cols.width)
     slab = 1.0 / 16.0
-    th, tw = -(-H_ // 8), -(-W_ // 128)
+    th, tw = -(-H_ // 8), -(-Wf // 128)
     k_slab, k_in = R.split(k)
     u0 = R.uniform(k_slab, (th, tw), dev, 0.0, 1.0 - slab)
-    u0 = u0.repeat_interleave(8, 0).repeat_interleave(128, 1)[:H_, :W_]
-    return u0 + R.uniform(k_in, (H_, W_), dev) * slab
+    rows = torch.arange(H_, device=dev) // 8
+    slabs = torch.remainder(x0 + torch.arange(W_, device=dev), Wf) // 128
+    u0 = u0[rows[:, None], slabs[None, :]]
+    return u0 + R.uniform(k_in, (H_, W_), dev, cols=cols) * slab
 
 
 def _refinement_candidates(inputs, params, key, xs, ys, normal, depth,
-                           prior_normal, prior_mask, prior_depth, dmin, dmax):
+                           prior_normal, prior_mask, prior_depth, dmin, dmax,
+                           cols=None):
     """The 5 refinement candidates (ACMMP.cu:871-874): (rand_d, cur_n),
     (cur_d, rand_n), (rand_d, rand_n), (cur_d, pert_n), (pert_d, cur_n).
     On the kernel paths the free random depths are tile-slab sampled so the
     kernels' windows cover them; on the exact path they are i.i.d.  In a
     planar-prior pass masked pixels draw around the prior instead (+-3
     sigma_d in depth, prior_angle_sigma in angle; ACMMP.cu:830-836).
+    ``cols``: the grid's columns in the frame's draw (a width tile).
     Returns (normals (5, ..., 3), w (5, ...), depth_at (5, ...))."""
     cam = inputs.ref_cam
     dev = depth.device
@@ -356,30 +406,31 @@ def _refinement_candidates(inputs, params, key, xs, ys, normal, depth,
         depth_sigma = (dmax - dmin) / params.prior_depth_sigma_div
         lo_p = torch.maximum(prior_depth - 3.0 * depth_sigma, dmin)
         hi_p = torch.minimum(prior_depth + 3.0 * depth_sigma, dmax)
-        u = R.uniform(k_rd, shape, dev)
+        u = R.uniform(k_rd, shape, dev, cols=cols)
         d_rand_prior = R.sample_depth_inv(u, lo_p, hi_p)
-        u_free = _slab_uniform(k_rd, shape, dev) if rand_fast else u
+        u_free = _slab_uniform(k_rd, shape, dev, cols) if rand_fast else u
         d_rand_free = R.sample_depth_inv(u_free, dmin, dmax)
         depth_rand = torch.where(prior_mask, d_rand_prior, d_rand_free)
         n_rand_prior = R.perturbed_normal(k_rn, cam, xs, ys, prior_normal,
-                                          params.prior_angle_sigma)
-        n_rand_free = R.random_normal_toward_viewer(k_rn, cam, xs, ys)
+                                          params.prior_angle_sigma, cols)
+        n_rand_free = R.random_normal_toward_viewer(k_rn, cam, xs, ys, cols)
         normal_rand = torch.where(prior_mask[..., None], n_rand_prior,
                                   n_rand_free)
     else:
-        u = (_slab_uniform(k_rd, shape, dev) if rand_fast
-             else R.uniform(k_rd, shape, dev))
+        u = (_slab_uniform(k_rd, shape, dev, cols) if rand_fast
+             else R.uniform(k_rd, shape, dev, cols=cols))
         depth_rand = R.sample_depth_inv(u, dmin, dmax)
-        normal_rand = R.random_normal_toward_viewer(k_rn, cam, xs, ys)
+        normal_rand = R.random_normal_toward_viewer(k_rn, cam, xs, ys, cols)
 
     lo = torch.maximum((1.0 - perturbation) * depth, dmin)
     hi = torch.minimum((1.0 + perturbation) * depth, dmax)
     healed = ~(hi > lo)
     lo = torch.where(healed, dmin, lo)
     hi = torch.where(healed, dmax, hi)
-    depth_pert = R.sample_depth_inv(R.uniform(k_pd, shape, dev), lo, hi)
+    depth_pert = R.sample_depth_inv(R.uniform(k_pd, shape, dev, cols=cols),
+                                    lo, hi)
     normal_pert = R.perturbed_normal(k_pn, cam, xs, ys, normal,
-                                     perturbation * torch.pi)
+                                     perturbation * torch.pi, cols)
 
     cand_depths = torch.stack([depth_rand, depth, depth_rand, depth,
                                depth_pert])
@@ -391,7 +442,7 @@ def _refinement_candidates(inputs, params, key, xs, ys, normal, depth,
 
 
 def _refinement(inputs, ctx, params, key, xs, ys, normal, w, depth, cost,
-                restricted, sel, prior, dmin, dmax, parity):
+                restricted, sel, prior, dmin, dmax, parity, cols):
     """Ratchet through the 5 refinement candidates in order
     (PlaneHypothesisRefinement, ACMMP.cu:797-936), anchored at the
     post-acceptance running hypothesis.  In a planar-prior pass masked
@@ -400,7 +451,7 @@ def _refinement(inputs, ctx, params, key, xs, ys, normal, w, depth, cost,
     prior_normal, prior_mask, prior_depth = prior
     cand_normals, cand_w, cand_depth_at = _refinement_candidates(
         inputs, params, key, xs, ys, normal, depth, prior_normal, prior_mask,
-        prior_depth, dmin, dmax)
+        prior_depth, dmin, dmax, cols)
     # candidates 0 and 2 carry the random depth: tile-slab sampled they may
     # use the kernels; i.i.d. (the windowed path of a prior pass) they take
     # the exact path (the reference's rand_ok, ops/propagate.py:615-621)
@@ -435,12 +486,13 @@ def _refinement(inputs, ctx, params, key, xs, ys, normal, w, depth, cost,
 def _halfstep_core(inputs, ctx, params, key, iteration, xs, ys, cur_normal,
                    cur_w, cur_cost, cur_pre_cost, cur_selected,
                    cands: Candidates, priors, prior_normal, prior_w,
-                   prior_mask, parity):
+                   prior_mask, parity, cols):
     """Propagation + refinement update of every position of one grid (the
     packed half-grid, or the full grid of the odd-frame fallback), with the
     planar-prior acceptance (``prior_*`` on that grid, in a planar-prior
-    pass) and the hierarchy commit guard.  Returns the updated (normal, w,
-    cost, selected)."""
+    pass) and the hierarchy commit guard; ``cols``: the grid's columns in
+    the frame's draw (None: the grid is the frame's).  Returns the updated
+    (normal, w, cost, selected)."""
     cam = inputs.ref_cam
     k_votes, k_refine = R.split(key)
     dmin, dmax = _depth_range(inputs)
@@ -456,7 +508,8 @@ def _halfstep_core(inputs, ctx, params, key, iteration, xs, ys, cur_normal,
 
     # view selection sees the photometric costs only
     sel = joint_view_selection(cost_arrays, cands.valid, priors,
-                               inputs.src_valid, params, k_votes, iteration)
+                               inputs.src_valid, params, k_votes, iteration,
+                               cols)
     final_costs = torch.stack([
         _aggregate(cost_arrays[k], geom[k], sel.weights, sel.weight_norm,
                    params.geom_weight_prop) for k in range(8)])
@@ -534,7 +587,7 @@ def _halfstep_core(inputs, ctx, params, key, iteration, xs, ys, cur_normal,
     normal_f, w_f, _, cost_f = _refinement(
         inputs, ctx, params, k_refine, xs, ys, normal_loc, w_loc, depth_loc,
         cost_loc, restricted_loc, sel, (prior_normal, prior_mask, prior_depth),
-        dmin, dmax, parity)
+        dmin, dmax, parity, cols)
 
     if params.hierarchy:
         # commit only a clear improvement on the seeded plane's own initial
@@ -550,34 +603,55 @@ def _halfstep_core(inputs, ctx, params, key, iteration, xs, ys, cur_normal,
 def checkerboard_halfstep(state: PlaneState, inputs: PatchMatchInputs,
                           params: PatchMatchParams, key, iteration: int,
                           parity: int, *,
-                          ctx: Optional[RefTapContext] = None) -> PlaneState:
+                          ctx: Optional[RefTapContext] = None,
+                          tile: Optional[Tile] = None) -> PlaneState:
     """Update every pixel with ``(x + y) % 2 == parity`` (reference
     Black/RedPixelUpdate, ACMMP.cu:1327-1349).  Even frames evaluate the
     packed half-grid (the rectified path on that colour's map); odd frames,
     or a rectified context without parity maps, evaluate the full grid and
     commit through a parity mask.  ``ctx`` (full grid) is built when the
-    costs leave the rectified path and it is not given."""
+    costs leave the rectified path and it is not given.
+
+    ``tile`` (exact path only): ``state`` holds the tile's core and its
+    halos, ``ctx`` and the prior fields of ``inputs`` the core, and the
+    result is the core's new state.  The stencils read the halos and do not
+    wrap (the halos hold the seam's columns of a SPHERE frame); the packing
+    and the odd-frame fallback follow the frame's width."""
     H, W = state.cost.shape
     dev = state.cost.device
     use_rect = _use_rect(inputs, params)
-    if ctx is None and not use_rect:
-        ctx = ref_tap_context(inputs.ref_image, inputs.ref_cam, params)
-    wrap = inputs.ref_cam.model == SPHERE
+    wrap = inputs.ref_cam.model == SPHERE and tile is None
     cands = gather_candidates(state.normal, state.w, state.cost, wrap_x=wrap)
     near_valid = cands.valid[list(NEAR_REGION_INDICES)]
     priors = view_selection_priors(state.selected, near_valid, params,
                                    wrap_x=wrap)
+    x0, W_frame = 0, W
+    if tile is not None:
+        check_exact_path(params)
+        core = lambda a, axis=-1: a.narrow(axis, tile.lo, tile.n)
+        state = PlaneState(normal=core(state.normal, -2), w=core(state.w),
+                           cost=core(state.cost),
+                           selected=core(state.selected),
+                           pre_cost=core(state.pre_cost))
+        cands = Candidates(normal=core(cands.normal, -2), w=core(cands.w),
+                           valid=core(cands.valid))
+        priors = core(priors)
+        x0, W, W_frame = tile.x0, tile.n, tile.width
+    if ctx is None and not use_rect:
+        ctx = ref_tap_context(inputs.ref_image, inputs.ref_cam, params,
+                              x0=x0, x1=x0 + W)
     prior = ((inputs.prior_normal, inputs.prior_w, inputs.prior_mask)
              if params.planar_prior else (None, None, None))
 
-    packed_ok = H % 2 == 0 and W % 2 == 0 and (
+    packed_ok = H % 2 == 0 and W_frame % 2 == 0 and (
         not use_rect or len(inputs.rect.maps) == 3)
     if not packed_ok:
-        xs, ys = grid_coords(H, W, dev)
+        xs, ys = grid_coords(H, W, dev, x0)
         normal_f, w_f, cost_f, sel_f = _halfstep_core(
             inputs, ctx, params, key, iteration, xs, ys, state.normal,
             state.w, state.cost, state.pre_cost, state.selected, cands,
-            priors, *prior, None)
+            priors, *prior, None,
+            None if tile is None else R.Cols(x0, W_frame))
         par = ((xs.to(torch.int64) + ys.to(torch.int64)) % 2) == parity
         return PlaneState(
             normal=torch.where(par[..., None], normal_f, state.normal),
@@ -588,7 +662,7 @@ def checkerboard_halfstep(state: PlaneState, inputs: PatchMatchInputs,
 
     P = lambda a: checkerboard_pack(a, parity)
     Pc = lambda a: checkerboard_pack(a.movedim(-1, 0), parity).movedim(0, -1)
-    xs_p, ys_p = checkerboard_coords(H, W, parity, dev)
+    xs_p, ys_p = checkerboard_coords(H, W, parity, dev, x0)
     ctx_p = None if ctx is None else RefTapContext(
         ctx.offsets, P(ctx.ref_taps), P(ctx.weights), P(ctx.center), xs_p,
         ys_p)
@@ -600,7 +674,8 @@ def checkerboard_halfstep(state: PlaneState, inputs: PatchMatchInputs,
         P(state.w), P(state.cost), P(state.pre_cost), P(state.selected),
         cands_p, P(priors), None if pn is None else Pc(pn),
         None if pw is None else P(pw), None if pm is None else P(pm),
-        parity if use_rect else None)
+        parity if use_rect else None,
+        None if tile is None else R.Cols(x0 // 2, W_frame // 2))
     normal = checkerboard_unpack(normal_f.movedim(-1, 0),
                                  state.normal.movedim(-1, 0), parity)
     return PlaneState(
@@ -611,10 +686,12 @@ def checkerboard_halfstep(state: PlaneState, inputs: PatchMatchInputs,
         pre_cost=state.pre_cost)
 
 
-def extract_depth_and_normal(state: PlaneState, cam: Camera):
+def extract_depth_and_normal(state: PlaneState, cam: Camera, *,
+                             x0: int = 0):
     """(depth (H, W), world normal (H, W, 3)) of the plane field
-    (reference GetDepthandNormal, ACMMP.cu:1351-1364)."""
+    (reference GetDepthandNormal, ACMMP.cu:1351-1364); ``x0``: the frame
+    column of the state's first column (a width tile)."""
     H, W = state.w.shape
-    xs, ys = grid_coords(H, W, state.w.device)
+    xs, ys = grid_coords(H, W, state.w.device, x0)
     depth = G.depth_from_plane(cam, xs, ys, state.normal, state.w)
     return depth, G.normal_cam_to_world(cam, state.normal)

@@ -9,6 +9,10 @@ the two packages can be compared pixel by pixel, not only in distribution.
 A key is a pair of Python ints ``(k1, k2)`` (each < 2**32): key derivation
 (``split``, ``fold_in``) is a handful of scalar hashes and runs on the host.
 Bulk bits run on the tensors' device as int64 arithmetic masked to 32 bits.
+Each element hashes its flat index in the drawn shape, so a ``Cols`` window
+draws a band of columns of a larger frame's draw without drawing the rest:
+a width tile of the tile-parallel pass draws the numbers that the one-slot
+pass draws at its pixels.
 
 ``normal`` is ``sqrt(2) * erfinv(u)`` as in jax.random, with XLA's own
 erf_inv polynomial and CPU log1p re-implemented (``torch.log1p`` and
@@ -18,7 +22,9 @@ erf_inv polynomial and CPU log1p re-implemented (``torch.log1p`` and
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -74,23 +80,57 @@ def fold_in(k: Key, data: int) -> Key:
     return _threefry_py(k[0], k[1], 0, int(data) & _M32)
 
 
-def bits(k: Key, shape, device) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class Cols:
+    """A column window of a draw: the drawn shape's column axis holds
+    columns ``x0, x0 + 1, ...`` (taken modulo ``width``, so a window may
+    run across a longitude seam) of the same draw over a frame ``width``
+    columns wide."""
+
+    x0: int
+    width: int
+
+
+def _flat_index(shape, device, cols: Optional[Cols], axis: int):
+    """int64 flat index, in the frame's draw, of each element of ``shape``
+    (``cols`` on axis ``axis``; None: the shape is the frame)."""
+    if cols is None:
+        return torch.arange(math.prod(shape), dtype=torch.int64,
+                            device=device)
+    axis %= len(shape)
+    lead, trail = math.prod(shape[:axis]), math.prod(shape[axis + 1:])
+    col = torch.remainder(
+        cols.x0 + torch.arange(shape[axis], dtype=torch.int64, device=device),
+        cols.width)
+    row = torch.arange(lead, dtype=torch.int64, device=device)
+    t = torch.arange(trail, dtype=torch.int64, device=device)
+    return ((row[:, None, None] * cols.width + col[None, :, None]) * trail
+            + t[None, None, :]).reshape(-1)
+
+
+def bits(k: Key, shape, device, cols: Optional[Cols] = None,
+         axis: int = -1) -> torch.Tensor:
     """32 random bits per element (int64 in [0, 2**32)), equal to
-    ``jax.random.bits(k, shape)``: hash of the flat index, words xor-ed."""
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    ``jax.random.bits(k, shape)``: hash of the flat index, words xor-ed.
+    With ``cols`` the elements are those of the window ``cols`` of the
+    draw over the frame's shape (``shape`` with ``cols.width`` on axis
+    ``axis``), bit for bit."""
+    idx = _flat_index(tuple(shape), device, cols, axis)
     m32 = lambda v: v & _M32
     rotl = lambda v, r: ((v << r) | (v >> (32 - r))) & _M32
     b1, b2 = _threefry(k[0], k[1], idx >> 32, idx & _M32, rotl, m32)
     return (b1 ^ b2).reshape(shape)
 
 
-def uniform(k: Key, shape, device, lo=0.0, hi=1.0) -> torch.Tensor:
+def uniform(k: Key, shape, device, lo=0.0, hi=1.0,
+            cols: Optional[Cols] = None, axis: int = -1) -> torch.Tensor:
     """``jax.random.uniform(k, shape, float32, lo, hi)``: mantissa bits with
     exponent 1, minus 1, scaled; ``lo``/``hi`` may be 0-d tensors.  XLA fuses
     the scale ``f * (hi - lo) + lo`` into one multiply-add: it is taken in
-    float64 (the f32 product is exact there) and rounded once to f32."""
-    fb = ((bits(k, shape, device) >> 9) | 0x3F800000).to(torch.int32)
+    float64 (the f32 product is exact there) and rounded once to f32.
+    ``cols``, ``axis``: a column window, as in :func:`bits`."""
+    fb = ((bits(k, shape, device, cols, axis) >> 9)
+          | 0x3F800000).to(torch.int32)
     f = fb.view(torch.float32) - 1.0
     lo = torch.as_tensor(lo, dtype=torch.float32, device=device)
     hi = torch.as_tensor(hi, dtype=torch.float32, device=device)
@@ -186,9 +226,11 @@ def _erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
-def normal(k: Key, shape, device) -> torch.Tensor:
-    """``jax.random.normal``: sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))."""
-    u = uniform(k, shape, device, _NORMAL_LO, 1.0)
+def normal(k: Key, shape, device, cols: Optional[Cols] = None,
+           axis: int = -1) -> torch.Tensor:
+    """``jax.random.normal``: sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1));
+    ``cols``, ``axis`` as in :func:`bits`."""
+    u = uniform(k, shape, device, _NORMAL_LO, 1.0, cols, axis)
     return _erfinv(u) * math.sqrt(2.0)
 
 
@@ -202,20 +244,25 @@ def sample_depth_inv(u, dmin, dmax) -> torch.Tensor:
     return 1.0 / (inv_min + u * (inv_max - inv_min))
 
 
-def random_normal_toward_viewer(k: Key, cam: Camera, xs, ys) -> torch.Tensor:
+def random_normal_toward_viewer(k: Key, cam: Camera, xs, ys,
+                                cols: Optional[Cols] = None) -> torch.Tensor:
     """Uniform-on-sphere unit normals flipped to face the viewer (reference
-    GenerateRandomNormal, ACMMP.cu:194-220).  Returns (H, W, 3)."""
-    n = G.normalize(normal(k, tuple(xs.shape) + (3,), xs.device))
+    GenerateRandomNormal, ACMMP.cu:194-220).  Returns (H, W, 3); ``cols``:
+    the columns of ``xs`` in the frame's draw."""
+    n = G.normalize(normal(k, tuple(xs.shape) + (3,), xs.device, cols, -2))
     vd = G.view_direction(cam, xs, ys)
     flip = (n * vd).sum(-1, keepdim=True) > 0.0
     return torch.where(flip, -n, n)
 
 
-def perturbed_normal(k: Key, cam: Camera, xs, ys, normal_, perturbation):
+def perturbed_normal(k: Key, cam: Camera, xs, ys, normal_, perturbation,
+                     cols: Optional[Cols] = None):
     """Euler-angle perturbation of per-pixel normals (reference
     GeneratePerturbedNormal, ACMMP.cu:222-257); keeps the original where the
-    perturbed normal faces away from the viewer."""
-    a = uniform(k, tuple(xs.shape) + (3,), xs.device, -0.5, 0.5) * perturbation
+    perturbed normal faces away from the viewer.  ``cols``: the columns of
+    ``xs`` in the frame's draw."""
+    a = uniform(k, tuple(xs.shape) + (3,), xs.device, -0.5, 0.5, cols,
+                -2) * perturbation
     s1, s2, s3 = torch.sin(a).unbind(-1)
     c1, c2, c3 = torch.cos(a).unbind(-1)
     nx, ny, nz = normal_.unbind(-1)
@@ -228,10 +275,13 @@ def perturbed_normal(k: Key, cam: Camera, xs, ys, normal_, perturbation):
     return G.normalize(torch.where(keep, normal_, p))
 
 
-def random_plane_hypothesis(k: Key, cam: Camera, xs, ys, depth_min, depth_max):
-    """Fresh random plane field (reference ACMMP.cu:259-265).
-    Returns (normal (H, W, 3), w (H, W))."""
+def random_plane_hypothesis(k: Key, cam: Camera, xs, ys, depth_min,
+                            depth_max, cols: Optional[Cols] = None):
+    """Fresh random plane field (reference ACMMP.cu:259-265); ``cols``: the
+    columns of ``xs`` in the frame's draw.  Returns (normal (H, W, 3),
+    w (H, W))."""
     kd, kn = split(k)
-    depth = uniform(kd, tuple(xs.shape), xs.device, depth_min, depth_max)
-    n = random_normal_toward_viewer(kn, cam, xs, ys)
+    depth = uniform(kd, tuple(xs.shape), xs.device, depth_min, depth_max,
+                    cols)
+    n = random_normal_toward_viewer(kn, cam, xs, ys, cols)
     return n, G.dist_to_origin(cam, xs, ys, depth, n)

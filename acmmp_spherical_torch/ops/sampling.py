@@ -13,11 +13,12 @@ from __future__ import annotations
 import torch
 
 
-def grid_coords(height: int, width: int, device):
-    """Pixel-centre coordinate grids (xs, ys), each (H, W) float32."""
+def grid_coords(height: int, width: int, device, x0: int = 0):
+    """Pixel-centre coordinate grids (xs, ys), each (H, W) float32, of the
+    columns ``x0 .. x0 + width - 1`` (a width tile of a larger frame)."""
     ys, xs = torch.meshgrid(
         torch.arange(height, dtype=torch.float32, device=device),
-        torch.arange(width, dtype=torch.float32, device=device),
+        torch.arange(x0, x0 + width, dtype=torch.float32, device=device),
         indexing="ij")
     return xs, ys
 
@@ -218,9 +219,14 @@ def checkerboard_unpack(packed: torch.Tensor, full: torch.Tensor,
     return out
 
 
-def checkerboard_coords(height: int, width: int, parity: int, device):
-    """(xs, ys) of the packed half-grid, (H, W//2) each."""
-    xs, ys = grid_coords(height, width, device)
+def checkerboard_coords(height: int, width: int, parity: int, device,
+                        x0: int = 0):
+    """(xs, ys) of the packed half-grid, (H, W//2) each, of the columns
+    from ``x0`` on; ``x0`` even, so the packing's local colour is the
+    frame's."""
+    if x0 % 2:
+        raise ValueError(f"checkerboard_coords: odd first column {x0}")
+    xs, ys = grid_coords(height, width, device, x0)
     return checkerboard_pack(xs, parity), checkerboard_pack(ys, parity)
 
 

@@ -4,6 +4,7 @@ acmmp_spherical_tpu/ops/view_select.py; reference ACMMP.cu:1146-1208)."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -31,10 +32,11 @@ def view_selection_priors(selected_prev, near_valid, params: PatchMatchParams,
 
 
 def joint_view_selection(cost_arrays, cand_valid, priors, src_valid,
-                         params: PatchMatchParams, key, iteration: int
-                         ) -> ViewSelection:
+                         params: PatchMatchParams, key, iteration: int,
+                         cols: Optional[R.Cols] = None) -> ViewSelection:
     """Per-view scores over the 8 candidates, then ``num_votes``
-    importance-sampled votes from the per-pixel CDF."""
+    importance-sampled votes from the per-pixel CDF; ``cols``: the grid's
+    columns in the frame's draw (a width tile)."""
     S = cost_arrays.shape[1]
     spatial = tuple(cost_arrays.shape[2:])
     dev = cost_arrays.device
@@ -63,7 +65,7 @@ def joint_view_selection(cost_arrays, cand_valid, priors, src_valid,
     total = probs.sum(0)
     cdf = torch.cumsum(probs, 0) / torch.clamp(total, min=1e-30)
     anyprob = total > 0.0
-    u = R.uniform(key, (params.num_votes,) + spatial, dev)
+    u = R.uniform(key, (params.num_votes,) + spatial, dev, cols=cols)
     view_ids = torch.arange(S, device=dev).reshape((S,) + (1,) * len(spatial))
     weights = torch.zeros((S,) + spatial, dtype=torch.float32, device=dev)
     for v in range(params.num_votes):

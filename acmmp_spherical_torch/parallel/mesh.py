@@ -7,7 +7,8 @@ ordered list of device slots, and ``run_slots`` drives each slot from a
 host thread of its own, under its device and on a CUDA stream of its own.
 A device may fill several slots: three slots of one GPU keep three problems
 in flight on it, and slots of the CPU stand for the JAX tests' virtual
-devices.  The 2D view x tile mesh waits for the tile-parallel pass.
+devices.  ``make_view_tile_mesh`` lays slots out as problems x width
+tiles (``parallel/tile.py`` runs one problem's tiles over a row).
 """
 
 from __future__ import annotations
@@ -50,6 +51,33 @@ def make_view_mesh(n_devices: Optional[int] = None,
     if not devices:
         raise ValueError("make_view_mesh: no device slots")
     return ViewMesh(devices=tuple(devices))
+
+
+@dataclasses.dataclass(frozen=True)
+class ViewTileMesh:
+    """Slots in a grid of problems x width tiles: ``devices[v][t]`` is the
+    slot of tile ``t`` of problem slot ``v``; a device may repeat."""
+
+    devices: tuple
+
+    @property
+    def shape(self) -> tuple:
+        return len(self.devices), len(self.devices[0])
+
+    def tile_mesh(self, v: int) -> ViewMesh:
+        """The tile slots of problem slot ``v``, for ``parallel/tile``."""
+        return ViewMesh(devices=tuple(self.devices[v]))
+
+
+def make_view_tile_mesh(n_view: int, n_tile: int,
+                        devices: Optional[Sequence] = None) -> ViewTileMesh:
+    """An ``n_view`` x ``n_tile`` grid of slots over ``devices`` (default:
+    every local CUDA device, which must exist), filled row by row; where
+    there are fewer devices than slots they repeat round-robin."""
+    devs = make_view_mesh(devices=devices).devices
+    flat = [devs[i % len(devs)] for i in range(n_view * n_tile)]
+    return ViewTileMesh(devices=tuple(
+        tuple(flat[v * n_tile:(v + 1) * n_tile]) for v in range(n_view)))
 
 
 def tree_map(fn: Callable, tree):
@@ -109,13 +137,16 @@ def slot_context(device: torch.device, stream=None):
 
 
 def run_slots(mesh: ViewMesh, fn: Callable, items: Sequence,
-              streams: Optional[Sequence] = None) -> list:
+              streams: Optional[Sequence] = None, *,
+              threads: bool = True) -> list:
     """``fn(slot, items[slot])`` for each item, item ``i`` on slot ``i``,
     each in a thread of its own under the slot's device and stream (from
     ``streams``, or the device's current one); a slot's stream is
     synchronised before its thread ends, so the results are complete on
     return.  Returns the results in slot order; raises the first slot's
-    exception once every thread has ended."""
+    exception once every thread has ended.  ``threads=False`` runs the
+    slots one after the other in the calling thread, with the same slot
+    index and context."""
     if len(items) > mesh.size:
         raise ValueError(f"{len(items)} items over {mesh.size} slots")
     results: list = [None] * len(items)
@@ -135,12 +166,16 @@ def run_slots(mesh: ViewMesh, fn: Callable, items: Sequence,
         finally:
             _SLOT.index = None
 
-    threads = [threading.Thread(target=run, args=(i,), name=f"slot-{i}")
-               for i in range(len(items))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
+    if threads:
+        started = [threading.Thread(target=run, args=(i,), name=f"slot-{i}")
+                   for i in range(len(items))]
+        for t in started:
+            t.start()
+        for t in started:
+            t.join()
+    else:
+        for i in range(len(items)):
+            run(i)
     for e in errors:
         if e is not None:
             raise e

@@ -4,7 +4,7 @@
 
     python -m acmmp_spherical_torch reconstruct <dense_folder> [--no-prior]
         [--resume] [--seed N] [--max-src-views K] [--size-bound B]
-        [--batch {auto,on,off}] [--device {cuda,cpu}]
+        [--batch {auto,on,off}] [--tile-shard N] [--device {cuda,cpu}]
         [--distributed [--coordinator HOST:PORT] [--num-processes N]
          [--process-id R]]
     python -m acmmp_spherical_torch convert --dense_folder <colmap>
@@ -13,6 +13,10 @@
 
 The reference's binary takes the scene folder alone (main.cpp:392-399).
 The run is on the CUDA device unless ``--device cpu`` asks for the CPU.
+``--tile-shard N`` cuts every depth map into N width tiles over N slots of
+the local CUDA devices (round-robin: N slots of the one card on a host with
+one GPU; N slots of the CPU with ``--device cpu``; a rank's own device
+under ``--distributed``).
 ``--distributed`` runs the command as one rank of several processes (one
 command per rank, on one or several hosts sharing the scene folder): it
 starts a gloo process group at ``tcp://<coordinator>``, or from torchrun's
@@ -70,7 +74,8 @@ def _reconstruct(args) -> int:
                          skip_if_complete=args.resume,
                          max_src_views=args.max_src_views,
                          size_bound=args.size_bound,
-                         batch_problems=args.batch)
+                         batch_problems=args.batch,
+                         tile_shard=args.tile_shard)
     try:
         n = run_pipeline(args.dense_folder, cfg, device=device)
     finally:
@@ -111,6 +116,12 @@ def main(argv=None) -> int:
     r.add_argument("--batch", default="auto", choices=["auto", "on", "off"],
                    help="chunked pass execution over the local devices"
                         " (auto: on when >1 CUDA device, in one process)")
+    r.add_argument("--tile-shard", type=int, default=1,
+                   help="intra-image tile parallelism: cut each depth map "
+                        "along the image width into N tiles over N local "
+                        "device slots (halo exchange) for frames too large "
+                        "for one device; forces the exact path and disables "
+                        "batching")
     r.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="the device every pass runs on")
     r.add_argument("--distributed", action="store_true",

@@ -6,7 +6,10 @@ planar-prior round, then ``geom_iterations`` geometric passes; finally all
 views are fused into a coloured point cloud.
 
 Passes run one problem after the other on one device, or in chunks over a
-mesh of device slots (``cfg.batch_problems``, ``pipeline/batch_runner``).
+mesh of device slots (``cfg.batch_problems``, ``pipeline/batch_runner``),
+or one problem after the other with each depth map cut into width tiles
+over a mesh of slots (``cfg.tile_shard``, ``parallel/tile.py``; exact
+path, no batching).
 When a batched pass fails, the failure is logged and the problems whose
 files it had not yet written run serially.  A problem that fails within
 its writes leaves some of its files rewritten, and its serial rerun may
@@ -182,7 +185,7 @@ def run_fusion(sp: ScenePaths, problems: Sequence[Problem],
 
 
 def run_pipeline(root, cfg: PipelineConfig = PipelineConfig(), *,
-                 device="cuda", mesh=None,
+                 device="cuda", mesh=None, tile_mesh=None,
                  timings: Optional[Timings] = None) -> int:
     """Full coarse-to-fine reconstruction of a scene folder on ``device``;
     returns the fused point count (0 on ranks other than 0).  Per scale: a
@@ -190,7 +193,11 @@ def run_pipeline(root, cfg: PipelineConfig = PipelineConfig(), *,
     planar-prior round, then ``geom_iterations`` geometric passes (the
     second with multi_geometry).  Batched passes (``cfg.batch_problems``)
     run over ``mesh`` (default: every local CUDA device in a one-process
-    run, else ``device`` alone).  ``timings`` (optional) collects the wall
+    run, else ``device`` alone).  With ``cfg.tile_shard > 1``, or a
+    ``tile_mesh`` given, every pass cuts its depth map into width tiles
+    over ``tile_mesh`` (default: ``cfg.tile_shard`` slots over the local
+    CUDA devices in a one-process run, else slots of ``device``), on the
+    exact path, and batching is off.  ``timings`` (optional) collects the wall
     time per pass kind and scale (``photometric_s1``, ``geom0_s0``, ...;
     per problem, or per batched pass), per JBU pass, per fusion and the
     ``load``, ``prior_build`` and ``write`` scopes of the passes (and the
@@ -215,9 +222,19 @@ def run_pipeline(root, cfg: PipelineConfig = PipelineConfig(), *,
             log.info("barrier %s", name)
             dist.barrier()
 
-    batched = cfg.batch_problems == "on" or (
+    local_devices = None if device.type == "cuda" and world == 1 \
+        else [device]
+    if tile_mesh is None and cfg.tile_shard > 1:
+        from acmmp_spherical_torch.parallel.tile import make_tile_mesh
+
+        tile_mesh = make_tile_mesh(cfg.tile_shard, devices=local_devices)
+    if tile_mesh is not None:
+        log.info("tile-parallel passes: width tiles over %d slots %s (exact "
+                 "path; batching off)", tile_mesh.size,
+                 [str(d) for d in tile_mesh.devices])
+    batched = tile_mesh is None and (cfg.batch_problems == "on" or (
         cfg.batch_problems == "auto" and device.type == "cuda" and world == 1
-        and torch.cuda.device_count() > 1)
+        and torch.cuda.device_count() > 1))
     if batched:
         from acmmp_spherical_torch.parallel.mesh import make_view_mesh
         from acmmp_spherical_torch.pipeline.batch_runner import (
@@ -225,8 +242,7 @@ def run_pipeline(root, cfg: PipelineConfig = PipelineConfig(), *,
         )
 
         if mesh is None:
-            mesh = make_view_mesh(devices=None if device.type == "cuda"
-                                  and world == 1 else [device])
+            mesh = make_view_mesh(devices=local_devices)
         log.info("batched passes over %d slots: %s", mesh.size,
                  [str(d) for d in mesh.devices])
 
@@ -238,7 +254,8 @@ def run_pipeline(root, cfg: PipelineConfig = PipelineConfig(), *,
             try:
                 with timings.scope(pass_name):
                     process_problem(sp, problems, idx, cfg, device=device,
-                                    timings=timings, **kw)
+                                    timings=timings, tile_mesh=tile_mesh,
+                                    **kw)
                 mark_pass_complete(sp, pass_name, pid)
                 return
             except Exception:

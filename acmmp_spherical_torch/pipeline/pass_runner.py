@@ -393,11 +393,12 @@ def problem_key(cfg: PipelineConfig, image_id: int,
 
 
 def main_round(inputs: PatchMatchInputs, params: PatchMatchParams, key,
-               seeds: dict):
+               seeds: dict, shard_state=None):
     """The pass's first round: (prepared inputs, depth, normal_world, cost,
-    state)."""
+    state); ``shard_state`` as in ``run_patchmatch``."""
     inputs = prepare_inputs(inputs, params)
-    return (inputs, *run_patchmatch(inputs, params, key, **seeds))
+    return (inputs, *run_patchmatch(inputs, params, key,
+                                    shard_state=shard_state, **seeds))
 
 
 def prior_build(sp: ScenePaths, lp: LoadedProblem, image_id: int, depth,
@@ -418,16 +419,18 @@ def prior_build(sp: ScenePaths, lp: LoadedProblem, image_id: int, depth,
 
 
 def prior_round(inputs: PatchMatchInputs, state, prior,
-                params: PatchMatchParams, key):
+                params: PatchMatchParams, key, shard_state=None):
     """The second round with the planar prior (main.cpp:113-197), on the
     first round's prepared inputs and state, drawing from ``fold_in(key,
-    1)``: (depth, normal_world, cost, state)."""
+    1)``: (depth, normal_world, cost, state); ``shard_state`` as in
+    ``run_patchmatch``."""
     t = lambda a: torch.from_numpy(a).to(inputs.ref_image.device)
     prior_inputs = dataclasses.replace(
         inputs, prior_normal=t(prior[0]), prior_w=t(prior[1]),
         prior_mask=t(prior[2]))
     return run_patchmatch(prior_inputs, params.with_planar_prior(),
-                          R.fold_in(key, 1), prev_state=state)
+                          R.fold_in(key, 1), prev_state=state,
+                          shard_state=shard_state)
 
 
 def write_results(sp: ScenePaths, image_id: int, depth, normal_world, cost,
@@ -444,11 +447,15 @@ def process_problem(sp: ScenePaths, problems: Sequence[Problem], idx: int,
                     cfg: PipelineConfig, *, geom: bool = False,
                     planar_prior: bool = False, hierarchy: bool = False,
                     multi_geometry: bool = False, seed: Optional[int] = None,
-                    device="cuda", timings: Optional[Timings] = None) -> None:
+                    device="cuda", timings: Optional[Timings] = None,
+                    tile_mesh=None) -> None:
     """Run one pass for one problem and write its results (ProcessProblem
     analog, main.cpp:73-210): ``main_round``, then, with the planar prior,
     ``prior_build`` and ``prior_round``, then ``write_results``.
-    ``timings`` gets the ``load``, ``prior_build`` and ``write`` scopes."""
+    ``timings`` gets the ``load``, ``prior_build`` and ``write`` scopes.
+    ``tile_mesh``: both rounds cut the depth map into width tiles over the
+    mesh's slots (``parallel/tile.py``), on the exact path: the windowed
+    and rectified paths are turned off, as the JAX package does."""
     device = torch.device(device)
     timings = Timings() if timings is None else timings
     image_id = problems[idx].ref_image_id
@@ -462,17 +469,25 @@ def process_problem(sp: ScenePaths, problems: Sequence[Problem], idx: int,
             params = params.with_hierarchy()
         seeds = load_seeds(sp, lp, image_id, geom=geom, hierarchy=hierarchy,
                            multi_geometry=multi_geometry, device=device)
+    shard_state = None
+    if tile_mesh is not None:
+        from acmmp_spherical_torch.parallel.tile import make_state_sharder
+
+        params = dataclasses.replace(params, fast_ncc=False, rect_ncc=False,
+                                     rect_comp_hw=None, rect_live_n=None,
+                                     rect_init=False, rect_warp_hw=None)
+        shard_state = make_state_sharder(tile_mesh)
     key = problem_key(cfg, image_id, seed)
     log.info("pass image=%08d size=%dx%d geom=%s prior=%s hier=%s multi=%s "
              "path=%s", image_id, lp.width, lp.height, geom, planar_prior,
              hierarchy, multi_geometry, "rect" if params.rect_ncc
              else "window" if params.fast_ncc else "exact")
-    inputs, depth, normal_world, cost, state = main_round(lp.inputs, params,
-                                                          key, seeds)
+    inputs, depth, normal_world, cost, state = main_round(
+        lp.inputs, params, key, seeds, shard_state)
     if planar_prior:
         prior = prior_build(sp, lp, image_id, depth, cost, cfg, timings)
         if prior is not None:
             depth, normal_world, cost, state = prior_round(
-                inputs, state, prior, params, key)
+                inputs, state, prior, params, key, shard_state)
     write_results(sp, image_id, depth, normal_world, cost, geom=geom,
                   timings=timings)

@@ -152,7 +152,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the 1024x768x8src ring, one rectified photometric pass with both bf16
    packs off and one with both on, their median errors and shares within
    1% (gated on finite depth only), with the first-launch checks of phase
-   14 in each warm pass.
+   14 in each warm pass;
+16. the tile-parallel path (``parallel/tile.py``), which forces the exact
+   path: the 1024x768x8src photometric pass, the geometric pass seeded
+   from it with phase 4's source depths and the 1024x512x6src SPHERE
+   photometric pass, at one iteration each, once warm, then timed on one
+   slot and in width
+   tiles over 2 and 3 slots of the card, with the card's peak memory; each
+   tiled pass must equal the one-slot pass bit for bit (else the share of
+   identical pixels is printed and rtol 1e-5, atol 1e-4 hold), and no
+   kernel may launch; then ``python -m acmmp_spherical_torch reconstruct
+   --tile-shard 2 --no-prior`` on a 3-view 256x192 ring beside
+   ``run_pipeline`` of the same scene on the exact path: every file equal
+   (the manifest as sets), the fused point count within 2%, no kernel
+   launched.
 Phases 9 and 11-13 run ``PipelineConfig()`` defaults, both bf16 packs on:
 their first-launch checks hold kernels 1p and 4p against the packed plain
 version and ``pack_src_pairs`` (once per context: the prior round reuses
@@ -260,6 +273,20 @@ PK_GEOM_KERNELS = ("rect_ncc_geom_pk", "pack_src_pairs", "warp_transport",
 # OccludedRoom ring of 4 views at 96x64, focal 80, key 3) and its gates
 DISCONTINUITY = dict(width=96, height=64, n_views=4, focal=80.0, key=3,
                      err_max=0.02, band_err_max=0.06)
+# phase 16: the tile-parallel pass over slots of the one card (the exact
+# path, which tile-shard mode forces) at one iteration per pass (the bench
+# passes' 3, and the geometric pass's 2, cut for time: a tile costs the
+# card about a whole exact pass of launches), its fallback gate where a
+# tiled pass is not bit-identical (tests/test_parallel.py:71), and the tiled
+# pipeline's scene: 3 views at 256x192, one scale, the bench ring's focal
+# 0.9 W, without the planar-prior round (an exact pass costs ~6-7 s at any
+# size; with the prior round the serial run took 86.2 s and the tiled one
+# 150.2 s, run at once)
+TILE_SLOTS = (2, 3)
+TILE_ITERATIONS = 1
+TILE_RTOL, TILE_ATOL = 1e-5, 1e-4
+TILE_PIPELINE_SCENE = dict(label="tile", n_views=3, width=256, height=192,
+                           cameras=dict(focal=230.4, radius=0.25))
 
 
 def log(msg: str) -> None:
@@ -1837,6 +1864,229 @@ def run_hostile_phase(dev):
     return out
 
 
+def exact_params(params):
+    """``params`` on the exact path, as tile-shard mode forces it
+    (pass_runner.process_problem(tile_mesh=)), at ``TILE_ITERATIONS``."""
+    return dataclasses.replace(params, rect_ncc=False, fast_ncc=False,
+                               rect_init=False, rect_comp_hw=None,
+                               rect_live_n=None, rect_warp_hw=None,
+                               max_iterations=TILE_ITERATIONS)
+
+
+def tile_case(dev, name, fn, errors):
+    """One pass kind of phase 16: ``fn(shard_state)`` once warm on one
+    slot, then timed on one slot (the ordinary pass) and tiled over
+    ``TILE_SLOTS`` slots of the card, the card's peak memory reset before
+    each; every tiled output must equal the one-slot one bit for bit
+    (depth, normal, cost), else the share of identical pixels is printed
+    and ``TILE_RTOL``/``TILE_ATOL`` holds.  ``errors(out)``: the pass's
+    depth errors.  Returns the numbers and the one-slot output."""
+    import numpy as np
+    import torch
+
+    from acmmp_spherical_torch.parallel import (
+        make_state_sharder, make_tile_mesh,
+    )
+
+    runs, ref = {}, None
+    t0 = time.perf_counter()
+    fn(None)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    for n in (1,) + TILE_SLOTS:
+        sharder = (None if n == 1 else
+                   make_state_sharder(make_tile_mesh(n, devices=[dev])))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn(sharder)
+        torch.cuda.synchronize()
+        run = dict(pass_s=time.perf_counter() - t0,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   errors=errors(out))
+        if n == 1:
+            run["warm_s"] = warm_s
+        if n == 1:
+            ref = out[:3]
+        else:
+            same = _same(tuple(out[:3]), tuple(ref))
+            pix = ((out[0] == ref[0]) & (out[1] == ref[1]).all(-1)
+                   & (out[2] == ref[2]))
+            run.update(bit_identical=same,
+                       identical_pixels=float(pix.float().mean()))
+            if not same:
+                log(f"phase 16 {name} over {n} slots: not bit-identical to "
+                    f"one slot, {run['identical_pixels']} of the pixels "
+                    f"identical, max err {_max_err(tuple(out[:3]), ref)}")
+                for a, b in zip(out[:3], ref):
+                    np.testing.assert_allclose(a.cpu().numpy(),
+                                               b.cpu().numpy(),
+                                               rtol=TILE_RTOL, atol=TILE_ATOL)
+        runs[n] = run
+        del out
+    log(f"phase 16 {name}: {json.dumps(runs)}")
+    return runs, ref
+
+
+TILE_RUN_SCRIPT = """
+import json, runpy
+from acmmp_spherical_torch.ops.kernels import _lib
+try:
+    runpy.run_module("acmmp_spherical_torch", run_name="__main__",
+                     alter_sys=True)
+finally:
+    print("LAUNCHES " + json.dumps(_lib.LAUNCHES), flush=True)
+"""
+
+
+def run_tile_pipeline(dev, work):
+    """The tiled pipeline of phase 16: ``python -m acmmp_spherical_torch
+    reconstruct <scene> --tile-shard 2`` (through ``TILE_RUN_SCRIPT``,
+    which prints its launch counts as it exits) on a copy of the
+    ``TILE_PIPELINE_SCENE`` ring, both without the planar-prior round,
+    against ``run_pipeline`` of another copy
+    on the exact path, one problem after the other, in this process while
+    the tiled run's process runs (both are bound by their hosts' launches;
+    their wall times overlap).  The tiled run must
+    exit 0 with its passes on the exact path over 2 slots and launch no
+    kernel (the serial run neither); its ``.dmb`` files must equal the
+    serial run's byte for byte (else view by view its final depth within
+    tests/test_parallel.py:150-152's bounds), its manifest hold the same
+    entries and its fused cloud within 2% of the serial run's points."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from acmmp_spherical_torch.config import PipelineConfig
+    from acmmp_spherical_torch.io import read_depth_dmb
+    from acmmp_spherical_torch.io.scene import ScenePaths
+    from acmmp_spherical_torch.ops.kernels import _lib
+    from acmmp_spherical_torch.pipeline import multiscale
+    from acmmp_spherical_torch.utils.metrics import depth_error_stats
+
+    sc = TILE_PIPELINE_SCENE
+    gt, scene_s = write_pipeline_scene(sc, work / f"{sc['label']}_input")
+    serial_root = scene_copy(work, sc, "serial")
+    tiled_root = scene_copy(work, sc, "tiled")
+    cfg = PipelineConfig(fast_ncc="off", rect_ncc="off",
+                         batch_problems="off", planar_prior=False)
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", TILE_RUN_SCRIPT, "reconstruct",
+         str(tiled_root), "--tile-shard", "2", "--no-prior"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        n_serial = multiscale.run_pipeline(serial_root, cfg, device=dev)
+        torch.cuda.synchronize()
+        serial_s = time.perf_counter() - t0
+        serial_launches = dict(_lib.LAUNCHES)
+        o = proc.communicate(timeout=900)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    tiled_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 16: reconstruct --tile-shard 2 exited "
+                             f"{proc.returncode}: {o[-3000:]}")
+    launches = json.loads(re.findall(r"^LAUNCHES (.*)$", o, re.M)[-1])
+    paths = re.findall(r"pass image=\d+ .* path=(\w+)", o)
+    n_tiled = int(re.findall(r"fusion wrote (\d+) points", o)[-1])
+    if ("tile-parallel passes: width tiles over 2 slots" not in o
+            or not paths or set(paths) != {"exact"}):
+        raise AssertionError(f"phase 16: the tiled run's passes ran on "
+                             f"{sorted(set(paths))}, not tiled on the exact "
+                             "path over 2 slots")
+    if any(launches.values()) or any(serial_launches.values()):
+        raise AssertionError(f"phase 16: the pipelines launched kernels: "
+                             f"tiled {launches}, serial {serial_launches}")
+    differ = outputs_differ(serial_root, tiled_root, manifest_as_sets=True)
+    if any(f.endswith("manifest.json") for f in differ):
+        raise AssertionError("phase 16: the manifests differ")
+    dmb_differ = [f for f in differ if f.endswith(".dmb")]
+    sp_s, sp_t = ScenePaths(serial_root), ScenePaths(tiled_root)
+    bounds = []
+    for v in range(sc["n_views"]):
+        a = read_depth_dmb(sp_t.depth_file(v, geom=True))
+        b = read_depth_dmb(sp_s.depth_file(v, geom=True))
+        rel = np.abs(a - b) / np.maximum(b, 1e-6)
+        bounds.append((float(np.median(rel)), float(np.mean(rel < 1e-3))))
+    errs = [depth_error_stats(read_depth_dmb(sp_t.depth_file(v, geom=True)),
+                              gt[v])["median_rel_err"]
+            for v in range(sc["n_views"])]
+    out = dict(scene_s=scene_s, serial_s=serial_s, tiled_s=tiled_s,
+               serial_points=n_serial, tiled_points=n_tiled,
+               files_differ=differ, dmb_bytes_equal=not dmb_differ,
+               depth_bounds=bounds, median_rel_depth_err=errs,
+               passes=len(paths), launches=launches,
+               serial_launches=serial_launches)
+    log(f"phase 16 pipeline {sc['width']}x{sc['height']}x{sc['n_views']} "
+        f"views: {json.dumps(out)}")
+    if dmb_differ and not all(m < 1e-5 and f > 0.99 for m, f in bounds):
+        raise AssertionError(f"phase 16: tiled depths outside the bounds: "
+                             f"{bounds}")
+    if not (n_serial > 0 and abs(n_tiled - n_serial) <= 0.02 * n_serial):
+        raise AssertionError(f"phase 16: {n_tiled} fused points tiled, "
+                             f"{n_serial} serial")
+    return out
+
+
+def run_tile_phase(dev, inputs, params, gt, geom_inputs):
+    """Phase 16: the tile-parallel path on the card.  Exact passes at full
+    width and ``TILE_ITERATIONS`` iterations, each on one slot and tiled
+    over 2 and 3 slots of the card
+    (``tile_case``): the photometric bench pass (1024x768x8src), the
+    geometric pass seeded from its one-slot output with phase 4's source
+    depths, and the SPHERE photometric pass at 1024x512x6src (its ring
+    halo crosses the seam), with the launch counters zeroed just before and
+    read just after (every count must be 0: no TPU kernel lies on this
+    path); then the tiled pipeline (``run_tile_pipeline``)."""
+    import torch
+
+    from acmmp_spherical_torch.bench import (
+        SPHERE_BENCH_SCENE, make_sphere_problem, sphere_band_errors,
+    )
+    from acmmp_spherical_torch.ops.kernels import _lib
+    from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch
+
+    ex = exact_params(params)
+    pin_err = lambda o: dict(median_rel_err=median_rel_err(o[0], gt[0]))
+    _lib.reset_launch_counts()
+    out = dict(passes={})
+    out["passes"]["photometric"], phot = tile_case(
+        dev, "photometric 1024x768x8src", lambda sh: run_patchmatch(
+            inputs, ex, 16, shard_state=sh), pin_err)
+    seeds = dict(seed_normal_world=phot[1], seed_depth=phot[0])
+    gp = dataclasses.replace(ex.with_geom(multi_geometry=False),
+                             max_iterations=TILE_ITERATIONS)
+    out["passes"]["geometric"], _ = tile_case(
+        dev, "geometric 1024x768x8src", lambda sh: run_patchmatch(
+            geom_inputs, gp, 116, shard_state=sh, **seeds), pin_err)
+    del phot, seeds
+    sinputs, sparams, sgt, _ = make_sphere_problem(**SPHERE_BENCH_SCENE,
+                                                   device=dev)
+    sph_err = lambda o: sphere_band_errors(o[0].cpu().numpy(), sgt[0],
+                                           sinputs.ref_cam)
+    out["passes"]["sphere"], _ = tile_case(
+        dev, "sphere photometric 1024x512x6src", lambda sh: run_patchmatch(
+            sinputs, exact_params(sparams), 17, shard_state=sh), sph_err)
+    out["launches"] = dict(_lib.LAUNCHES)
+    if any(out["launches"].values()):
+        raise AssertionError(f"phase 16 launched kernels: {out['launches']}")
+    del sinputs
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        out["pipeline"] = run_tile_pipeline(dev, pathlib.Path(work))
+    summary = {k: {n: [r["pass_s"], r["peak_mem_bytes"],
+                       r.get("bit_identical")] for n, r in v.items()}
+               for k, v in out["passes"].items()}
+    log(f"phase 16: pass s, peak bytes, bit-identical per slot count "
+        f"{json.dumps(summary)}; launches {out['launches']}")
+    return out
+
+
 RANK_SCRIPT = """
 import json, runpy, sys
 import chip_smoke
@@ -1990,6 +2240,7 @@ def main() -> int:
     # the bench problem and its rectified context
     t0 = time.perf_counter()
     inputs, params, gt, _ = make_problem(**BENCH_SCENE, device=dev)
+    bench_gt = gt
     log(f"scene render {time.perf_counter() - t0:.1f} s; params "
         f"comp_hw={params.rect_comp_hw} live_n={params.rect_live_n} "
         f"init_win={params.rect_init_win} warp_hw={params.rect_warp_hw} "
@@ -2211,6 +2462,10 @@ def main() -> int:
 
     # phase 15: the hostile bench pass, packs on and off
     hostile = run_hostile_phase(dev)
+
+    # phase 16: the tile-parallel pass over slots of the card, and the
+    # tiled pipeline
+    tile = run_tile_phase(dev, inputs, params, bench_gt, geom_inputs)
     for p_ in (pphot, pgeom, *one_runs, sphere["phot_pk"], sphere["geom_pk"],
                pipe, spipe, bpipe["batched_checked"], bpipe["multichip"],
                dpipe, *disc["paths"].values(), *hostile["paths"].values()):
@@ -2257,7 +2512,7 @@ def main() -> int:
         "golden_hier_worst_over_tol": hworst, "pipeline": pipe,
         "sphere": sphere, "sphere_pipeline": spipe, "convert": conv,
         "batched_pipeline": bpipe, "distributed_pipeline": dpipe,
-        "discontinuity": disc, "hostile": hostile,
+        "discontinuity": disc, "hostile": hostile, "tile": tile,
         "smoke_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

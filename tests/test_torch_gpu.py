@@ -24,7 +24,9 @@ of their fixtures.  The sphere path: kernels 1 and 4 on the pole-rotated
 operands (C = 1, 5, 9, full grid and both parities) bit-exact;
 ``sphere_batched_ncc`` on the card against the CPU plain version within
 the transcendental tolerance of test_torch_sphere_rect.py; the sphere's
-golden rectified pass within 2e-2 of its fixture.
+golden rectified pass within 2e-2 of its fixture.  The tile-parallel
+pass: the exact golden passes (pinhole and SPHERE) in width tiles over 3
+slots of the card equal the one-slot passes bit for bit.
 """
 
 import dataclasses
@@ -837,3 +839,31 @@ def test_sphere_golden_pass_on_card(cuda):
                        .read_text())
     stats.pop("band_median_rel_err")
     _check_against_stats(stats, d, nrm, cost)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["pinhole", "sphere"])
+def test_tiled_pass_on_card_equals_one_slot(cuda, model):
+    """The exact golden pass with its plane state in width tiles over 3
+    slots of the card (halo exchange; the SPHERE ring halo crosses the
+    seam) equals the one-slot pass bit for bit, and launches no kernel."""
+    from acmmp_spherical_torch.bench import (
+        SPHERE_GOLDEN_SCENE, make_sphere_problem,
+    )
+    from acmmp_spherical_torch.parallel import (
+        make_state_sharder, make_tile_mesh,
+    )
+
+    if model == "sphere":
+        inputs, params = make_sphere_problem(**SPHERE_GOLDEN_SCENE,
+                                             device=cuda)[:2]
+        params = dataclasses.replace(params, rect_ncc=False, rect_init=False)
+    else:
+        inputs, params = _golden_off_rect(cuda)
+    sharder = make_state_sharder(make_tile_mesh(3, devices=[cuda]))
+    one = run_patchmatch(inputs, params, GOLDEN_KEY)
+    _lib.reset_launch_counts()
+    tiled = run_patchmatch(inputs, params, GOLDEN_KEY, shard_state=sharder)
+    assert not any(_lib.LAUNCHES.values())
+    for a, b in zip(tiled[:3], one[:3]):
+        assert a.device == b.device and torch.equal(a, b)

@@ -3,9 +3,10 @@ import OpenCV: tiny photometric passes and geometric passes seeded from
 them on the rectified, windowed and exact paths, an odd-frame pass and the
 windowed sampler, and SPHERE photometric and geometric passes on the
 pole-rotated and exact paths run in a fresh interpreter, which also imports
-the profiling script and every module of the pipeline (io, prior, JBU,
-fusion, pass runner, batch runner, multiscale, COLMAP converter, CLI),
-``parallel/`` and ``utils/profiling`` and then must not hold ``jax``,
+the profiling scripts, the quality report and every module of the
+pipeline (io, prior, JBU, fusion, pass runner, batch runner, multiscale,
+COLMAP converter, CLI), ``parallel/`` (the tile-parallel pass included) and
+``utils/profiling`` and then must not hold ``jax``,
 ``jaxlib``, ``acmmp_spherical_tpu`` or ``cv2`` in ``sys.modules``; then the
 ``reconstruct`` command runs a tiny pinhole scene (``--batch on``: chunked
 passes over the one CPU slot) and a tiny SPHERE scene on the CPU (planar
@@ -94,12 +95,13 @@ SCRIPT = textwrap.dedent("""
         assert bool(torch.isfinite(d).all() and torch.isfinite(g).all())
     import acmmp_spherical_torch.profile_batch  # noqa: F401
     import acmmp_spherical_torch.profile_pass  # noqa: F401
+    import acmmp_spherical_torch.quality_report  # noqa: F401
     from acmmp_spherical_torch import io, utils  # noqa: F401
     from acmmp_spherical_torch.ops import fusion, jbu  # noqa: F401
     from acmmp_spherical_torch.pipeline import (  # noqa: F401
         batch_runner, cli, colmap, convert, multiscale, pass_runner, prior)
     from acmmp_spherical_torch.parallel import (  # noqa: F401
-        fusion as pfusion, mesh, synthetic_batch, view_parallel)
+        fusion as pfusion, mesh, synthetic_batch, tile, view_parallel)
     from acmmp_spherical_torch.utils import log, metrics, profiling  # noqa: F401
     forbidden = lambda names: sorted(
         m for m in sys.modules if m.split(".")[0] in names)
