@@ -4,9 +4,11 @@ acmmp_spherical_tpu/config.py).
 
 Every field keeps the reference's name and default, so parameters built on
 either side convert with ``PatchMatchParams(**dataclasses.asdict(other))``
-(``interop.params``).  Knobs whose code paths are not ported yet are kept as
-fields; the pass raises ``NotImplementedError`` on them
-(``ops/propagate._check_params``).  The bf16 packs (``rect_tap_pack``,
+(``interop.params``); the fields of the TPU's split-program mode
+(``ctx_reuse``, ``ctx_cache_mb``, ``split_iterations``) are left out.
+Every field takes effect as in the reference.  ``rect_prescreen``
+ranks the candidates at a coarse tap pattern on the rectified path
+(``ops/propagate._prescreen``).  The bf16 packs (``rect_tap_pack``,
 ``rect_backmap_pack``, both on by default as in the reference) take effect
 as there: packed taps round the source values the rectified kernel samples
 to bf16, the packed back-map rounds the mapped-back costs

@@ -34,7 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"rect_ncc": 0, "rect_ncc_geom": 0, "rect_ncc_pk": 0,
-            "rect_ncc_geom_pk": 0, "pack_src_pairs": 0, "warp_transport": 0,
+            "rect_ncc_geom_pk": 0, "rect_ncc_t9": 0, "rect_ncc_geom_t9": 0,
+            "rect_ncc_pk_t9": 0, "rect_ncc_geom_pk_t9": 0,
+            "pack_src_pairs": 0, "warp_transport": 0,
             "warp_src_frames": 0, "warp_src_disparities": 0,
             "ncc_window": 0, "ncc_window_geom": 0, "window_sample": 0}
 
@@ -43,8 +45,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
 _SIGNATURES = {
-    "acmmp_rect_ncc": [_P] * 9 + [_I] * 8 + [_P] + [_F] * 3 + [_D, _P],
-    "acmmp_rect_ncc_geom": [_P] * 11 + [_I] * 8 + [_P] + [_F] * 4 + [_D, _P],
+    "acmmp_rect_ncc": [_P] * 9 + [_I] * 9 + [_P] + [_F] * 3 + [_D, _P],
+    "acmmp_rect_ncc_geom": [_P] * 11 + [_I] * 9 + [_P] + [_F] * 4 + [_D, _P],
     "acmmp_pack_src_pairs": [_P] * 2 + [_I] * 2 + [_P],
     "acmmp_warp_transport": [_P] * 12 + [_I] * 4 + [_P],
     "acmmp_warp_src_frames": [_P] * 3 + [_I] * 8 + [_P],

@@ -230,6 +230,34 @@ def coefficient_transport(rect: RectContext, maps, normals, ws):
 # kernel 1: the rectified NCC cost
 # ---------------------------------------------------------------------------
 
+# The unrolled builds of kernel 1 (csrc/rect_ncc.cu, ``TapBuild``) by tap
+# pattern (radius, increment), with the suffix of their launch keys: the
+# default 11x11 stride-2 pattern (36 taps) and ``rect_prescreen``'s coarse
+# 11x11 stride-5 pattern (9 taps).  Any other pattern runs the build with
+# runtime tap bounds (``RUNTIME_TAPS``), counted under the key without a
+# suffix.
+RUNTIME_TAPS = 0
+UNROLLED_TAPS = {(5, 2): (1, ""), (5, 5): (2, "_t9")}
+
+
+def _tap_build(params: PatchMatchParams, runtime_taps: bool = False):
+    """(build, key suffix) of a launch at ``params``' tap pattern."""
+    if runtime_taps:
+        return RUNTIME_TAPS, ""
+    return UNROLLED_TAPS.get((params.patch_size // 2, params.radius_increment),
+                             (RUNTIME_TAPS, ""))
+
+
+def launch_key(params: PatchMatchParams, with_geom: bool,
+               runtime_taps: bool = False) -> str:
+    """The ``LAUNCHES`` key that a ``rect_ncc`` launch at ``params`` counts
+    under: ``rect_ncc``, ``_geom`` for the with_geom variant, ``_pk`` for
+    packed taps, ``_t9`` for the 9-tap build of the coarse pattern."""
+    return ("rect_ncc" + ("_geom" if with_geom else "")
+            + ("_pk" if params.rect_tap_pack else "")
+            + _tap_build(params, runtime_taps)[1])
+
+
 def _weight_consts(params: PatchMatchParams):
     inv_2ss = 1.0 / (2.0 * params.sigma_spatial * params.sigma_spatial)
     inv_2sc = 1.0 / (2.0 * params.sigma_color * params.sigma_color)
@@ -350,13 +378,17 @@ def rect_ncc_plain(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB,
 
 
 def rect_ncc(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
-             params: PatchMatchParams, sdisp=None, src_pk=None):
+             params: PatchMatchParams, sdisp=None, src_pk=None, *,
+             runtime_taps: bool = False):
     """Kernel 1 (csrc/rect_ncc.cu) on CUDA tensors; the plain version on CPU
     tensors.  Returns the (C, S, 8N, 128) cost planes; with ``sdisp`` (S, Hp,
     Wp) the with_geom variant, returning (cost, geom) planes.  With
     ``params.rect_tap_pack`` the packed-tap variant runs on ``src_pk``,
-    ``pack_src_pairs(rect_src)`` (the context's ``rect_src_pk``), counted
-    under ``rect_ncc_pk`` / ``rect_ncc_geom_pk``."""
+    ``pack_src_pairs(rect_src)`` (the context's ``rect_src_pk``).  The
+    default tap pattern and ``rect_prescreen``'s coarse one run their
+    unrolled builds (``UNROLLED_TAPS``), any other pattern -- or any pattern
+    with ``runtime_taps``, to time the two side by side -- the build with
+    runtime tap bounds.  Counted under ``launch_key``."""
     if D.device.type == "cpu":
         return rect_ncc_plain(srow, tile_oy, tile_ox, rect_ref, rect_src, D,
                               AB, fwd_valid, params, sdisp)
@@ -390,16 +422,17 @@ def rect_ncc(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
     common = (srow.data_ptr(), tile_oy.data_ptr(), tile_ox.data_ptr(),
               rect_ref.data_ptr(), rect_src.data_ptr(), D.data_ptr(),
               AB.data_ptr(), fwd_valid.data_ptr(), out.data_ptr())
-    shape = (C, S, N, Hp, Wp, win_w, r, params.radius_increment,
+    build = _tap_build(params, runtime_taps)[0]
+    shape = (C, S, N, Hp, Wp, win_w, r, params.radius_increment, build,
              src_pk.data_ptr() if pack else None)
-    suffix = "_pk" if pack else ""
+    key = launch_key(params, sdisp is not None, runtime_taps)
     if sdisp is None:
         with torch.cuda.device(dev):
             err = lib.acmmp_rect_ncc(*common, *shape, inv_2sc, clampv,
                                      params.cost_max, inv_2ss,
                                      _lib.stream_ptr(out))
-        _lib.check(err, "rect_ncc" + suffix)
-        _lib.count_launch("rect_ncc" + suffix)
+        _lib.check(err, key)
+        _lib.count_launch(key)
         return out
     _lib.require(sdisp, "sdisp", torch.float32, (S, Hp, Wp), dev)
     gout = torch.empty_like(out)
@@ -408,8 +441,8 @@ def rect_ncc(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
             *common, sdisp.data_ptr(), gout.data_ptr(), *shape, inv_2sc,
             clampv, params.cost_max, params.geom_max_cost, inv_2ss,
             _lib.stream_ptr(out))
-    _lib.check(err, "rect_ncc_geom" + suffix)
-    _lib.count_launch("rect_ncc_geom" + suffix)
+    _lib.check(err, key)
+    _lib.count_launch(key)
     return out, gout
 
 

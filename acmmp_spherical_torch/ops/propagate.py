@@ -2,8 +2,8 @@
 refinement (counterpart of acmmp_spherical_tpu/ops/propagate.py).
 
 The photometric, hierarchy, planar-prior and geometric-consistency passes
-on each cost path -- the rectified kernel path (``rect_ncc``;
-``rect_prescreen`` off), the windowed kernel path (``fast_ncc``, pinhole
+on each cost path -- the rectified kernel path (``rect_ncc``, with or
+without ``rect_prescreen``), the windowed kernel path (``fast_ncc``, pinhole
 only) and the exact path (neither) -- on even frames through the packed
 half-grid and on odd frames through the full-grid fallback with a
 parity-masked commit.  SPHERE problems take the pole-rotated rectified path
@@ -106,12 +106,6 @@ def check_exact_path(params: PatchMatchParams) -> None:
                          "the pipeline's --tile-shard mode do")
 
 
-def _check_params(params: PatchMatchParams) -> None:
-    if params.rect_prescreen:
-        raise NotImplementedError(
-            "rect_prescreen is not ported (off by default, measured slower)")
-
-
 def _model(inputs: PatchMatchInputs):
     """The problem's camera model, or None when it mixes models."""
     m = inputs.ref_cam.model
@@ -127,7 +121,6 @@ def prepare_inputs(inputs: PatchMatchInputs,
     a context that is already attached gains it if it lacks it); the
     windowed and exact paths, and mixed-model problems, need nothing
     more."""
-    _check_params(params)
     if not params.rect_ncc or _model(inputs) is None:
         return inputs
     rect = inputs.rect if inputs.rect is not None else _build_context(
@@ -177,6 +170,21 @@ def _use_rect(inputs: PatchMatchInputs, params: PatchMatchParams) -> bool:
             and _model(inputs) is not None):
         return False
     return not params.geom_consistency or inputs.rect.rect_sdisp is not None
+
+
+def _prescreen(inputs: PatchMatchInputs, params: PatchMatchParams) -> bool:
+    """``rect_prescreen`` takes effect: on the rectified path, outside
+    planar-prior rounds.  The half-step's propagation also leaves geometric
+    passes at full taps (its caller's test)."""
+    return (params.rect_prescreen and not params.planar_prior
+            and _use_rect(inputs, params))
+
+
+def coarse_params(params: PatchMatchParams) -> PatchMatchParams:
+    """``params`` at prescreen's coarse tap pattern (``radius_increment =
+    prescreen_increment``: 9 taps of the 11x11 patch where 36 rank)."""
+    return dataclasses.replace(params,
+                               radius_increment=params.prescreen_increment)
 
 
 def _use_fast(inputs: PatchMatchInputs, params: PatchMatchParams) -> bool:
@@ -315,7 +323,6 @@ def initialize_state(inputs: PatchMatchInputs, params: PatchMatchParams,
     exact path otherwise (``ctx`` is built when not given).  With ``tile``
     the state, ``prev_state``, the seed and prior fields and ``ctx`` cover
     the tile's core columns (exact path only)."""
-    _check_params(params)
     H, W = inputs.ref_image.shape
     cam = inputs.ref_cam
     dev = inputs.ref_image.device
@@ -452,6 +459,11 @@ def _refinement(inputs, ctx, params, key, xs, ys, normal, w, depth, cost,
     cand_normals, cand_w, cand_depth_at = _refinement_candidates(
         inputs, params, key, xs, ys, normal, depth, prior_normal, prior_mask,
         prior_depth, dmin, dmax, cols)
+    can_refine = sel.weight_norm > 0.0     # reference early-out (ACMMP.cu:813)
+    if _prescreen(inputs, params):
+        return _prescreened_refinement(
+            inputs, ctx, params, sel, normal, w, depth, cost, cand_normals,
+            cand_w, cand_depth_at, can_refine, dmin, dmax, parity)
     # candidates 0 and 2 carry the random depth: tile-slab sampled they may
     # use the kernels; i.i.d. (the windowed path of a prior pass) they take
     # the exact path (the reference's rand_ok, ops/propagate.py:615-621)
@@ -460,7 +472,6 @@ def _refinement(inputs, ctx, params, key, xs, ys, normal, w, depth, cost,
     cv5, gv5 = _batched_cost_vectors(
         inputs, ctx, params, cand_normals, cand_w,
         exact_idx=() if rand_ok else (0, 2), parity=parity)
-    can_refine = sel.weight_norm > 0.0     # reference early-out (ACMMP.cu:813)
     for i in range(5):
         c_i = _aggregate(cv5[i], None if gv5 is None else gv5[i], sel.weights,
                          sel.weight_norm, params.geom_weight_refine)
@@ -483,6 +494,41 @@ def _refinement(inputs, ctx, params, key, xs, ys, normal, w, depth, cost,
     return normal, w, depth, cost
 
 
+def _prescreened_refinement(inputs, ctx, params, sel, normal, w, depth, cost,
+                            cand_normals, cand_w, cand_depth_at, can_refine,
+                            dmin, dmax, parity):
+    """The refinement of ``rect_prescreen`` (the reference's two-stage
+    branch): the 5 candidates ranked at the coarse tap pattern in one C=5
+    evaluation, the valid one of least coarse cost (the first on a tie)
+    evaluated at full taps (C=1), and accepted where that cost beats the
+    running one.  The sequential ratchet over 5 costs equals this argmin, so
+    only the ranking cost differs.  Both costs leave the geometric term out,
+    in geometric passes too (the reference aggregates them without it), so
+    an accepted pixel's cost is photometric alone."""
+    cv5 = _batched_cost_vectors(inputs, ctx, coarse_params(params),
+                                cand_normals, cand_w, parity=parity)[0]
+    valid5 = (can_refine[None] & (cand_depth_at >= dmin)
+              & (cand_depth_at <= dmax) & (cand_depth_at < G.INVALID_DEPTH))
+    pre = torch.stack([
+        _aggregate(cv5[i], None, sel.weights, sel.weight_norm,
+                   params.geom_weight_refine) for i in range(5)])
+    pre = torch.where(valid5, pre, torch.full_like(pre, float("inf")))
+    pick = torch.argmin(pre, 0)
+    take = lambda a: torch.gather(a, 0, pick[None])[0]
+    win_n = torch.gather(cand_normals, 0,
+                         pick[None, ..., None].expand(1, *normal.shape))[0]
+    win_w, win_d = take(cand_w), take(cand_depth_at)
+    win_valid = take(valid5.to(torch.int32)) > 0
+    cv1 = _batched_cost_vectors(inputs, ctx, params, win_n[None], win_w[None],
+                                parity=parity)[0]
+    win_cost = _aggregate(cv1[0], None, sel.weights, sel.weight_norm,
+                          params.geom_weight_refine)
+    accept = win_valid & (win_cost < cost)
+    return (torch.where(accept[..., None], win_n, normal),
+            torch.where(accept, win_w, w), torch.where(accept, win_d, depth),
+            torch.where(accept, win_cost, cost))
+
+
 def _halfstep_core(inputs, ctx, params, key, iteration, xs, ys, cur_normal,
                    cur_w, cur_cost, cur_pre_cost, cur_selected,
                    cands: Candidates, priors, prior_normal, prior_w,
@@ -497,14 +543,24 @@ def _halfstep_core(inputs, ctx, params, key, iteration, xs, ys, cur_normal,
     k_votes, k_refine = R.split(key)
     dmin, dmax = _depth_range(inputs)
 
-    # the 8 candidates and the current plane in one C=9 evaluation
-    all_n = torch.cat([cands.normal, cur_normal[None]], 0)
-    all_w = torch.cat([cands.w, cur_w[None]], 0)
-    cv_all, gv_all = _batched_cost_vectors(inputs, ctx, params, all_n, all_w,
-                                           parity=parity)
-    cost_arrays = cv_all[:8]
-    geom = [None] * 8 if gv_all is None else gv_all[:8]
-    now_vecs = (cv_all[8], None if gv_all is None else gv_all[8])
+    prescreen = _prescreen(inputs, params) and not params.geom_consistency
+    if prescreen:
+        # rect_prescreen: the 8 candidates ranked at the coarse tap pattern
+        # in one C=8 evaluation; the winner and the current plane take the
+        # full taps below
+        cost_arrays = _batched_cost_vectors(
+            inputs, ctx, coarse_params(params), cands.normal.contiguous(),
+            cands.w.contiguous(), parity=parity)[0]
+        geom = [None] * 8
+    else:
+        # the 8 candidates and the current plane in one C=9 evaluation
+        all_n = torch.cat([cands.normal, cur_normal[None]], 0)
+        all_w = torch.cat([cands.w, cur_w[None]], 0)
+        cv_all, gv_all = _batched_cost_vectors(inputs, ctx, params, all_n,
+                                               all_w, parity=parity)
+        cost_arrays = cv_all[:8]
+        geom = [None] * 8 if gv_all is None else gv_all[:8]
+        now_vecs = (cv_all[8], None if gv_all is None else gv_all[8])
 
     # view selection sees the photometric costs only
     sel = joint_view_selection(cost_arrays, cands.valid, priors,
@@ -527,6 +583,16 @@ def _halfstep_core(inputs, ctx, params, key, iteration, xs, ys, cur_normal,
     best_valid = take(cands.valid.to(torch.int32)) > 0
     best_depth = G.depth_from_plane(cam, xs, ys, best_n, best_w)
     in_range = (best_depth >= dmin) & (best_depth <= dmax)
+    if prescreen:
+        # the winner's and the current plane's full-tap costs in one C=2
+        # evaluation, under this half-step's view weights: acceptance always
+        # compares full-tap costs
+        cv2 = _batched_cost_vectors(
+            inputs, ctx, params, torch.stack([best_n, cur_normal]),
+            torch.stack([best_w, cur_w]), parity=parity)[0]
+        best_cost = _aggregate(cv2[0], None, sel.weights, sel.weight_norm,
+                               params.geom_weight_prop)
+        now_vecs = (cv2[1], None)
 
     cost_now0 = _aggregate(now_vecs[0], now_vecs[1], sel.weights,
                            sel.weight_norm, params.geom_weight_prop)

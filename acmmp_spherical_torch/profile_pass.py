@@ -1,6 +1,7 @@
 """Where the time of a pass goes on the GPU: stage times and device time.
 
     python -m acmmp_spherical_torch.profile_pass [--windowed | --sphere]
+        [--prescreen]
 
 On the bench scene (CubeRoom 1024x768x8src, rectified path) it runs the
 photometric pass and the geometric pass seeded from it (source depths from
@@ -8,8 +9,10 @@ the 8 views' own photometric passes, as the bench); with ``--windowed`` the
 same two passes on the windowed path (``rect_ncc`` off, ``fast_ncc`` on,
 the geometric pass seeded from the windowed photometric one); with
 ``--sphere`` the two passes of the sphere bench scene (equirect CubeRoom
-1024x512x6src, pole-rotated path; source depths from keys 2000 + i).  For
-each it prints:
+1024x512x6src, pole-rotated path; source depths from keys 2000 + i).
+``--prescreen`` turns ``rect_prescreen`` on in both passes (the candidates
+ranked at the coarse tap pattern; it acts on the rectified paths only).
+For each it prints:
 
 * stage times -- host clock around each stage of ``run_patchmatch``, each
   ended by ``torch.cuda.synchronize()``, mean of 3 passes after a warm one:
@@ -111,10 +114,12 @@ def timing(kind, inputs, params, seeds, reps=3):
         pass_ms=1e3 * sum(walls) / reps, pass_s=walls)
 
 
-def trace(result, inputs, params, seeds):
-    """Add the device time of one traced pass to ``timing``'s result."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+def trace(result, inputs, params, seeds, host_ops: bool = True):
+    """Add the device time of one traced pass to ``timing``'s result.
+    ``host_ops=False`` records the device activity alone: the same device
+    kernels and times, traced in about half the host time."""
+    acts = ([torch.profiler.ProfilerActivity.CPU] if host_ops else []) + [
+        torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         run_patchmatch(inputs, params, 4, **seeds)
         torch.cuda.synchronize()
@@ -141,6 +146,7 @@ def main() -> None:
         raise RuntimeError("profile_pass needs a CUDA device")
     windowed = "--windowed" in sys.argv[1:]
     sphere = "--sphere" in sys.argv[1:]
+    prescreen = "--prescreen" in sys.argv[1:]
     dev = torch.device("cuda", 0)
     if sphere:
         inputs, params = make_sphere_problem(**SPHERE_BENCH_SCENE,
@@ -153,6 +159,9 @@ def main() -> None:
     if windowed:
         params = dataclasses.replace(params, rect_ncc=False, fast_ncc=True)
         kind = "windowed "
+    if prescreen:
+        params = dataclasses.replace(params, rect_prescreen=True)
+        kind = "prescreen " + kind
     d, n = run_patchmatch(inputs, params, 3)[:2]
     cases = [(kind + "photometric", inputs, params, {}),
              (kind + "geometric", geom_inputs,

@@ -143,11 +143,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    operand shape is held bit for bit against its plain version;
 14. the discontinuity golden (tests/test_discontinuity.py): an
    OccludedRoom ring of 4 views at 96x64, key 3, through the exact,
-   windowed and rectified paths at the defaults (packed), median relative
-   depth error < 0.02 and < 0.06 in the band around the depth steps; each
-   path's first launch of each kernel at each operand shape is held bit
-   for bit against its plain version, and every kernel a path launches
-   must have been checked;
+   windowed and rectified paths at the defaults (packed), and the
+   rectified path with ``rect_prescreen``, median relative depth error <
+   0.02 and < 0.06 in the band around the depth steps; each path's first
+   launch of each kernel at each operand shape is held bit for bit against
+   its plain version, and every kernel a path launches must have been
+   checked;
 15. the hostile bench pass: ``render_scene_hostile`` of an OccludedRoom on
    the 1024x768x8src ring, one rectified photometric pass with both bf16
    packs off and one with both on, their median errors and shares within
@@ -165,7 +166,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    --tile-shard 2 --no-prior`` on a 3-view 256x192 ring beside
    ``run_pipeline`` of the same scene on the exact path: every file equal
    (the manifest as sets), the fused point count within 2%, no kernel
-   launched.
+   launched;
+17. ``rect_prescreen`` (candidates ranked at the coarse 11x11 stride-5
+   pattern, 9 taps, by the 9-tap builds of kernels 1, 1p, 4 and 4p): the
+   1024x768x8src photometric pass and the geometric pass seeded from it
+   (phase 4's source depths) at the defaults and with both packs off, and
+   the 1024x512x6src SPHERE photometric and geometric passes (phase 10's
+   source depths) at the defaults, each once through ``drive_checked``
+   with its launches at full taps and of the 9-tap build counted exactly
+   (13 + 12 per photometric pass, 9 + 4 per geometric one); the packed
+   bench passes below 0.0032, the geometric one below the photometric
+   one, the SPHERE band errors below 0.02; the 9-tap builds at C = 8, 5,
+   2, 1 on the pinhole and SPHERE operands, bit for bit against the plain
+   version, timed beside the build with runtime tap bounds and the 36-tap
+   build; each default and prescreen pass in turn (a warm one, 3 timed)
+   on the host clock, then traced once (device time, idle share); phase
+   11's scene through ``run_pipeline`` with prescreen on, checked and gated
+   as phase 11, beside phase 11's run.
 Phases 9 and 11-13 run ``PipelineConfig()`` defaults, both bf16 packs on:
 their first-launch checks hold kernels 1p and 4p against the packed plain
 version and ``pack_src_pairs`` (once per context: the prior round reuses
@@ -255,7 +272,8 @@ SPHERE_PIPELINE_SCENE = dict(
     kernels=("rect_ncc_pk", "rect_ncc_geom_pk", "pack_src_pairs"))
 # the pipelines run PipelineConfig() defaults, both bf16 packs on: the f32
 # variants of kernels 1 and 4 must not launch there
-F32_RECT_KERNELS = ("rect_ncc", "rect_ncc_geom")
+F32_RECT_KERNELS = ("rect_ncc", "rect_ncc_geom", "rect_ncc_t9",
+                    "rect_ncc_geom_t9")
 # phase 12: slots of the one card for the batched pipeline (the phase-9
 # scene's 8 problems in chunks of 3, 3 and 2) and the view-parallel step's
 # synthetic batch
@@ -287,6 +305,21 @@ TILE_ITERATIONS = 1
 TILE_RTOL, TILE_ATOL = 1e-5, 1e-4
 TILE_PIPELINE_SCENE = dict(label="tile", n_views=3, width=256, height=192,
                            cameras=dict(focal=230.4, radius=0.25))
+# phase 17: rect_prescreen.  Launches of kernel 1 (4 in geometric passes)
+# per pass at full taps and of its 9-tap build: a photometric pass runs the
+# C=1 init at full taps, then per half-step C=8 coarse, C=2 full, C=5 coarse
+# and C=1 full (6 half-steps); a geometric pass the init, then per half-step
+# C=9 full, C=5 coarse and C=1 full (4 half-steps)
+PRESCREEN_PHOT_LAUNCHES = dict(full=13, coarse=12)
+PRESCREEN_GEOM_LAUNCHES = dict(full=9, coarse=4)
+PRESCREEN_TIMED = 3      # default and prescreen passes in turn, after a warm
+#                          pair
+T9_CANDIDATES = (8, 5, 2, 1)   # the candidate counts of a prescreened pass
+# the SPHERE scene of phase 11 with prescreen on: its 9-tap builds launch
+SPHERE_PRESCREEN_SCENE = dict(
+    SPHERE_PIPELINE_SCENE,
+    kernels=SPHERE_PIPELINE_SCENE["kernels"] + ("rect_ncc_pk_t9",
+                                                "rect_ncc_geom_pk_t9"))
 
 
 def log(msg: str) -> None:
@@ -572,9 +605,13 @@ def pairs_entry(cases: dict, ptxas: dict):
 
 
 def ptxas_of(ptxas: dict, variant: str) -> dict:
-    """ptxas' numbers of one variant's instantiations (``rect_ptxas``;
-    ``variant`` "phot", "geom", "phot_pk" or "geom_pk")."""
-    return {k: v for k, v in ptxas.items() if k.rsplit("_", 1)[0] == variant}
+    """ptxas' numbers of one variant's instantiations but the 9-tap one
+    (``rect_ptxas``; ``variant`` "phot", "geom", "phot_pk" or "geom_pk");
+    with "_t9" appended, of its 9-tap instantiation alone."""
+    if variant.endswith("_t9"):
+        return {variant: ptxas.get(variant, {})}
+    return {k: v for k, v in ptxas.items()
+            if k.rsplit("_", 1)[0] == variant and not k.endswith("_t9")}
 
 
 def packed_entry(cases: dict, ptxas: dict, variant: str):
@@ -589,12 +626,18 @@ def packed_entry(cases: dict, ptxas: dict, variant: str):
     return e
 
 
+# the rect kernel's builds by their offsets per axis (the kNOff template
+# argument): the unrolled default and coarse patterns, and runtime bounds
+TAP_BUILDS = {"6": "_default", "3": "_t9", "0": "_runtime"}
+
+
 def rect_ptxas(path) -> dict:
     """{variant: {registers, spill_stores, spill_loads}} of the
     rect_ncc_kernel instantiations in the build's ptxas log; a variant is
     "phot" or "geom", "_pk" for packed taps, then "_default" (the unrolled
-    11x11 stride-2 taps) or "_runtime" (tap bounds read at run time); and
-    of the pair-frame kernel, "pack_src_pairs"."""
+    11x11 stride-2 taps), "_t9" (the unrolled 11x11 stride-5 taps of
+    rect_prescreen) or "_runtime" (tap bounds read at run time); and of the
+    pair-frame kernel, "pack_src_pairs"."""
     import re
 
     out, cur = {}, None
@@ -608,7 +651,7 @@ def rect_ptxas(path) -> dict:
             cur = None if t is None else (
                 ("geom" if t.group(1) == "1" else "phot")
                 + ("_pk" if t.group(2) == "1" else "")
-                + ("_runtime" if t.group(3) == "0" else "_default"))
+                + TAP_BUILDS[t.group(3)])
             if "pack_src_pairs_kernel" in m.group(1):
                 cur = "pack_src_pairs"
             if cur is not None:
@@ -816,7 +859,9 @@ def check_sphere_case(name, ctx, normals, ws, parity, p, with_geom):
 
 def run_sphere_phase(dev, results):
     """Phase 10: the sphere passes at 1024x512x6src; returns their numbers,
-    the photometric and geometric paths under ``phot`` and ``geom``."""
+    the photometric and geometric paths under ``phot`` and ``geom``, and
+    the problem (inputs, geometric inputs with the f32 passes' source
+    depths, the f32 parameters, ground truth) for phase 17."""
     import torch
 
     from acmmp_spherical_torch.bench import (
@@ -949,7 +994,7 @@ def run_sphere_phase(dev, results):
                                  f"{e['errors']} >= {SPHERE_BAND_ERR_MAX}")
     out.update(cases=cases, phot=phot, geom=geom, phot_pk=pphot,
                geom_pk=pgeom)
-    return out
+    return out, (inputs, geom_inputs, params, gt)
 
 
 def check_convert():
@@ -1324,12 +1369,18 @@ class LaunchScopes:
                 raise AssertionError(self.failures[-1])
 
 
-# the kernel each checked wrapper launches, from its bound arguments
+def _rect_launch_key(params, with_geom: bool) -> str:
+    from acmmp_spherical_torch.ops.kernels import ncc_rect as NR
+
+    return NR.launch_key(params, with_geom)
+
+
+# the kernel each checked wrapper launches, from its bound arguments (a
+# build of rect_ncc by its key: the 9-tap one under "_t9")
 KERNEL_OF = {
     "coefficient_transport": lambda a: "warp_transport",
-    "rect_ncc": lambda a: (("rect_ncc" if a.get("sdisp") is None
-                            else "rect_ncc_geom")
-                           + ("_pk" if a["params"].rect_tap_pack else "")),
+    "rect_ncc": lambda a: _rect_launch_key(a["params"],
+                                           a.get("sdisp") is not None),
     "pack_src_pairs": lambda a: "pack_src_pairs",
     "warp_src_frames": lambda a: "warp_src_frames",
     "warp_src_disparities": lambda a: "warp_src_disparities",
@@ -1474,8 +1525,10 @@ def outputs_differ(a, b, *, manifest_as_sets=False) -> list:
     return differ
 
 
-def run_pipeline_phase(dev, sc, work, gt, name, *, mesh=None, checked=True):
-    """Phase 9 (pinhole), 11 (SPHERE) or 12 (batched over ``mesh``):
+def run_pipeline_phase(dev, sc, work, gt, name, *, mesh=None, checked=True,
+                       patchmatch=None):
+    """Phase 9 (pinhole), 11 (SPHERE), 12 (batched over ``mesh``) or 17
+    (``patchmatch``: the passes' parameters in place of the defaults'):
     ``run_pipeline`` on a fresh copy ``name`` of the ring ``sc`` under
     ``work``; returns its numbers, with its folder under ``root`` and the
     launch counts of the run under ``launches``.  ``checked``: hold the
@@ -1498,6 +1551,8 @@ def run_pipeline_phase(dev, sc, work, gt, name, *, mesh=None, checked=True):
     room = CubeRoom()
     root = scene_copy(work, sc, name)
     cfg = PipelineConfig(batch_problems="off" if mesh is None else "on")
+    if patchmatch is not None:
+        cfg = dataclasses.replace(cfg, patchmatch=patchmatch)
     scopes = LaunchScopes()
     timings = scopes.timings
     torch.cuda.reset_peak_memory_stats()
@@ -1759,11 +1814,11 @@ def run_discontinuity_phase(dev):
     """Phase 14: tests/test_discontinuity.py on the card.  An OccludedRoom
     ring of 4 views at 96x64 (focal 80, key 3) through the exact, windowed
     and rectified paths at the defaults of ``PatchMatchParams`` (both bf16
-    packs on; prescreen is not ported), each run once with the launch
-    counters zeroed just before and read just after and its kernels' first
-    launches checked (``drive_checked``).  Median relative
-    depth error over [6:-6, 6:-6] < 0.02, and < 0.06 in the band within 3
-    px of a depth step."""
+    packs on), and the rectified path with ``rect_prescreen`` (its 9-tap
+    build must launch), each run once with the launch counters zeroed just
+    before and read just after and its kernels' first launches checked
+    (``drive_checked``).  Median relative depth error over [6:-6, 6:-6] <
+    0.02, and < 0.06 in the band within 3 px of a depth step."""
     import numpy as np
     import torch
 
@@ -1790,12 +1845,15 @@ def run_discontinuity_phase(dev):
         depth_range=cams[0].depth_range)
     inner = np.s_[6:-6, 6:-6]
     out = dict(band_fraction=float(band.mean()), paths={}, errors={})
-    for path, fast, rect, kernels in (
-            ("exact", False, False, ()),
-            ("window", True, False, ("ncc_window",)),
-            ("rect", True, True, PK_PHOT_KERNELS)):
+    for path, fast, rect, prescreen, kernels in (
+            ("exact", False, False, False, ()),
+            ("window", True, False, False, ("ncc_window",)),
+            ("rect", True, True, False, PK_PHOT_KERNELS),
+            ("rect prescreen", True, True, True,
+             PK_PHOT_KERNELS + ("rect_ncc_pk_t9",))):
         params = dataclasses.replace(PatchMatchParams(), fast_ncc=fast,
-                                     rect_ncc=rect, rect_init=rect)
+                                     rect_ncc=rect, rect_init=rect,
+                                     rect_prescreen=prescreen)
         res, run = drive_checked(
             f"discontinuity {path}", kernels,
             lambda r: run_patchmatch(inputs, params, dc["key"]), reps=0)
@@ -1811,9 +1869,10 @@ def run_discontinuity_phase(dev):
         f"of the frame; errors {out['errors']} (gates {dc['err_max']} / "
         f"{dc['band_err_max']}); launches "
         f"{ {k: v['launches'] for k, v in out['paths'].items()} }")
-    if out["paths"]["rect"]["launches"]["rect_ncc"]:
-        raise AssertionError("the discontinuity golden's rectified path "
-                             "launched the f32 rect kernel")
+    for path in ("rect", "rect prescreen"):
+        if any(out["paths"][path]["launches"][k] for k in F32_RECT_KERNELS):
+            raise AssertionError(f"the discontinuity golden's {path} path "
+                                 "launched an f32 rect kernel")
     for path, e in out["errors"].items():
         if not (e["median"] < dc["err_max"]
                 and e["band"] < dc["band_err_max"]):
@@ -2191,6 +2250,278 @@ def run_distributed_phase(sc, work, serial):
     return out
 
 
+def prescreen_pass(name, fn, params, geom: bool):
+    """One prescreened pass through ``drive_checked`` (the first launch of
+    each kernel at each operand shape held against its plain version), its
+    launches of kernel 1 (4 when ``geom``) at full taps and of the 9-tap
+    build counted exactly: a pass that ranks through any other build fails.
+    Returns the pass's output and numbers."""
+    from acmmp_spherical_torch.ops.propagate import coarse_params
+
+    full = _rect_launch_key(params, geom)
+    coarse = _rect_launch_key(coarse_params(params), geom)
+    if not coarse.endswith("_t9"):
+        raise AssertionError(f"{name}: the coarse pattern has no 9-tap build")
+    res, run = drive_checked(name, (full, coarse), fn, reps=0)
+    got = dict(full=run["launches"][full], coarse=run["launches"][coarse])
+    want = PRESCREEN_GEOM_LAUNCHES if geom else PRESCREEN_PHOT_LAUNCHES
+    if got != want:
+        raise AssertionError(f"{name}: launches of {full} / {coarse} {got}, "
+                             f"expected {want}")
+    return res, run
+
+
+def alternate_passes(cases):
+    """The passes ``cases`` {label: (inputs, params, seeds)} in turn on the
+    host clock: one warm pass each, then ``PRESCREEN_TIMED`` rounds of each
+    in turn (keys 1, 2, ...); then one traced pass each
+    (``profile_pass.trace`` of the device activity alone: device time, idle
+    share, device kernels).  Returns {label: numbers}."""
+    import torch
+
+    from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch
+    from acmmp_spherical_torch.profile_pass import trace
+
+    out = {k: dict(pass_s=[]) for k in cases}
+    for inputs, params, seeds in cases.values():
+        run_patchmatch(inputs, params, 0, **seeds)
+    torch.cuda.synchronize()
+    for r in range(PRESCREEN_TIMED):
+        for k, (inputs, params, seeds) in cases.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_patchmatch(inputs, params, r + 1, **seeds)
+            torch.cuda.synchronize()
+            out[k]["pass_s"].append(time.perf_counter() - t0)
+    for k, (inputs, params, seeds) in cases.items():
+        out[k]["pass_ms"] = 1e3 * sum(out[k]["pass_s"]) / PRESCREEN_TIMED
+        trace(out[k], inputs, params, seeds, host_ops=False)
+    return out
+
+
+def t9_cases(label, ctx, fields, params, transport):
+    """The 9-tap builds of kernels 1, 1p, 4 and 4p on one context: for each
+    C of ``T9_CANDIDATES``, C fields around ``fields`` (normal, w; w scaled
+    by 1 + 0.005 k) on the parity-0 map, moved onto the live tiles by
+    ``transport(ctx, maps, normals, ws)``.  The 9-tap build and the build
+    with runtime tap bounds at the same pattern are held bit for bit
+    against the plain version; CUDA-event times of the 9-tap, runtime and
+    36-tap (the default pattern, same C) builds in turns 9, runtime, 36,
+    36, runtime, 9 (5 calls each), the plain version's time and the bound
+    of the 9-tap work.  Returns {launch key: {"<label>_C<C>": numbers}}."""
+    import torch
+
+    from acmmp_spherical_torch.ops.kernels import ncc_rect as NR
+    from acmmp_spherical_torch.ops.propagate import coarse_params
+
+    maps = ctx.maps[1]
+    n, w = fields
+    out = {}
+    for C in T9_CANDIDATES:
+        scale = 1.0 + 0.005 * (torch.arange(C, device=w.device) - C // 2)
+        nn, ww = packed(n.expand(C, *n.shape), w * scale[:, None, None], 0)
+        D, AB = transport(ctx, maps, nn, ww)
+        args = (ctx.srow, ctx.tile_oy, ctx.tile_ox, ctx.rect_ref,
+                ctx.rect_src, D, AB, maps.fwd_valid)
+        S, K8 = D.shape[1:3]
+        live = int((maps.fwd_valid.reshape(S, K8 // 8, 1024).amax(-1)
+                    > 0.5).sum())
+        for pack in (False, True):
+            for geom in (False, True):
+                full = dataclasses.replace(params, rect_tap_pack=pack)
+                coarse = coarse_params(full)
+                r = coarse.patch_size // 2
+                n_taps = len(range(-r, r + 1, coarse.radius_increment)) ** 2
+                sd = dict(sdisp=ctx.rect_sdisp) if geom else {}
+                kw = dict(sd, **(dict(src_pk=ctx.rect_src_pk) if pack
+                                 else {}))
+                key = _rect_launch_key(coarse, geom)
+                k = NR.rect_ncc(*args, coarse, **kw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pl = NR.rect_ncc_plain(*args, coarse, **sd)
+                torch.cuda.synchronize()
+                plain_ms = 1e3 * (time.perf_counter() - t0)
+                rt = NR.rect_ncc(*args, coarse, **kw, runtime_taps=True)
+                torch.cuda.synchronize()
+                if not (_same(k, pl) and _same(rt, pl)):
+                    raise AssertionError(
+                        f"{key} {label} C={C}: not bit-identical to the plain "
+                        f"version (max err {_max_err(k, pl)}; runtime build "
+                        f"{_max_err(rt, pl)})")
+                calls = dict(
+                    t9=lambda: NR.rect_ncc(*args, coarse, **kw),
+                    runtime=lambda: NR.rect_ncc(*args, coarse, **kw,
+                                                runtime_taps=True),
+                    taps36=lambda: NR.rect_ncc(*args, full, **kw))
+                turns = {b: [] for b in calls}
+                for b in ("t9", "runtime", "taps36", "taps36", "runtime",
+                          "t9"):
+                    turns[b].append(cuda_ms(calls[b], 5))
+                frames = (ctx.rect_ref, ctx.rect_src) + (
+                    (ctx.rect_sdisp,) if geom else ())
+                bnd = bound(nbytes(D, AB, maps.fwd_valid, ctx.srow,
+                                   ctx.tile_oy, ctx.tile_ox, *frames,
+                                   *(k if geom else (k,))),
+                            live * 1024 * C * n_taps * TAP_FLOPS)
+                mean = lambda b: sum(turns[b]) / len(turns[b])
+                out.setdefault(key, {})[f"{label}_C{C}"] = dict(
+                    ms=mean("t9"), runtime_ms=mean("runtime"),
+                    taps36_ms=mean("taps36"), ms_turns=turns,
+                    plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                    max_abs_err=0.0, taps=n_taps)
+                del k, pl, rt
+        del D, AB, nn, ww
+    log(f"9-tap builds on {label} operands: {json.dumps(out)}")
+    return out
+
+
+def run_prescreen_phase(dev, bench, sphere_problem, work, sgt, spipe,
+                        results):
+    """Phase 17: ``rect_prescreen`` on the card, both bf16 packs on (the
+    defaults).  ``bench``: (inputs, f32 params, ground truth, geometric
+    inputs with phase 4's source depths); ``sphere_problem``: phase 10's
+    (inputs, geometric inputs, f32 params, ground truth).  The pinhole
+    photometric pass and the geometric pass seeded from it, the same two
+    with the packs off (kernels 1 and 4's 9-tap builds), and the SPHERE
+    photometric and geometric passes, each once through ``prescreen_pass``;
+    gates: the packed pinhole passes' median relative depth error below
+    ``DEPTH_ERR_MAX``, the geometric one below the photometric one, the
+    SPHERE band errors below ``SPHERE_BAND_ERR_MAX``; the f32 passes'
+    errors are printed (their default passes sit at the bench gate).
+    Then the 9-tap builds timed on the passes' operands (``t9_cases``), the
+    default and prescreen passes of each kind in turn (``alternate_passes``)
+    and phase 11's SPHERE scene through ``run_pipeline`` with prescreen on
+    (checked as phase 11, at phase 11's gates) beside phase 11's run.
+    Returns the numbers, the driven paths under ``paths``."""
+    import torch
+
+    from acmmp_spherical_torch.bench import sphere_band_errors
+    from acmmp_spherical_torch.config import PatchMatchParams
+    from acmmp_spherical_torch.ops import sphere_rect as SR
+    from acmmp_spherical_torch.ops.kernels import ncc_rect as NR
+    from acmmp_spherical_torch.ops.propagate import prepare_inputs
+    from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch
+
+    inputs, params, gt, geom_inputs = bench
+    out = dict(paths={}, errors={})
+    runs = out["paths"]
+
+    def pinhole(tag, packs):
+        p = dataclasses.replace(params, rect_tap_pack=packs,
+                                rect_backmap_pack=packs, rect_prescreen=True)
+        gp = p.with_geom(multi_geometry=False)
+        res, runs[f"{tag} photometric"] = prescreen_pass(
+            f"prescreen {tag} photometric", lambda r: run_patchmatch(
+                inputs, p, r), p, False)
+        seeds = dict(seed_normal_world=res[1], seed_depth=res[0])
+        gres, runs[f"{tag} geometric"] = prescreen_pass(
+            f"prescreen {tag} geometric", lambda r: run_patchmatch(
+                geom_inputs, gp, 100 + r, **seeds), gp, True)
+        out["errors"][tag] = dict(
+            photometric=median_rel_err(res[0], gt[0]),
+            geometric=median_rel_err(gres[0], gt[0]))
+        return p, gp, res, seeds
+
+    p, gp, res, seeds = pinhole("packed", True)
+    pinhole("f32", False)
+    e = out["errors"]["packed"]
+    log(f"phase 17: prescreen bench passes, median rel depth err "
+        f"{out['errors']} (gates {DEPTH_ERR_MAX} and below the photometric "
+        "for the packed passes)")
+    if not (e["photometric"] < DEPTH_ERR_MAX and e["geometric"]
+            < DEPTH_ERR_MAX and e["geometric"] < e["photometric"]):
+        raise AssertionError(f"prescreen bench passes: {e}")
+
+    s_inputs, s_geom_inputs, s_params, s_gt = sphere_problem
+    sp = dataclasses.replace(s_params, rect_tap_pack=True,
+                             rect_backmap_pack=True, rect_prescreen=True)
+    sgp = sp.with_geom(multi_geometry=False)
+    sres, runs["sphere photometric"] = prescreen_pass(
+        "prescreen sphere photometric", lambda r: run_patchmatch(
+            s_inputs, sp, r), sp, False)
+    sseeds = dict(seed_normal_world=sres[1], seed_depth=sres[0])
+    sgres, runs["sphere geometric"] = prescreen_pass(
+        "prescreen sphere geometric", lambda r: run_patchmatch(
+            s_geom_inputs, sgp, 50 + r, **sseeds), sgp, True)
+    out["errors"]["sphere"] = {
+        k: sphere_band_errors(o[0].cpu().numpy(), s_gt[0], s_inputs.ref_cam)
+        for k, o in (("photometric", sres), ("geometric", sgres))}
+    log(f"phase 17: prescreen sphere passes {out['errors']['sphere']} (gate "
+        f"{SPHERE_BAND_ERR_MAX} on the band)")
+    for k, e in out["errors"]["sphere"].items():
+        if not e["band"] < SPHERE_BAND_ERR_MAX:
+            raise AssertionError(f"prescreen sphere {k}: {e}")
+
+    # the 9-tap builds on the passes' own operands
+    t0 = time.perf_counter()
+    ctx = prepare_inputs(geom_inputs, gp).rect
+    cases = t9_cases("pinhole", ctx, plane_field(inputs.ref_cam, *res[:2]),
+                     p, NR.coefficient_transport)
+    del ctx
+    sctx = prepare_inputs(s_geom_inputs, sgp).rect
+    sphere_transport = lambda c, maps, n, w: NR.warp_transport_plain(
+        *SR.sphere_coefficient_tables(c, n, w, 0), maps.fwd_idx,
+        maps.fwd_valid)
+    for key, c in t9_cases("sphere", sctx,
+                           plane_field(s_inputs.ref_cam, *sres[:2]), sp,
+                           sphere_transport).items():
+        cases[key].update(c)
+    del sctx
+    out["t9_cases_s"] = time.perf_counter() - t0
+    for key, c in cases.items():
+        # the entry's numbers: the largest coarse call of the key's passes
+        # (C=8 photometric, C=5 geometric), pinhole operands
+        first = c["pinhole_C5" if "geom" in key else "pinhole_C8"]
+        e = kernel_entry("rect_ncc.cu", "ncc_rect.py:614", 0.0, first["ms"],
+                         first["plain_ms"], (first["bound_ms"],
+                                             first["bound_by"]))
+        variant = ("geom" if "geom" in key else "phot") + (
+            "_pk" if "_pk" in key else "")
+        e.update(runtime_ms=first["runtime_ms"], taps36_ms=first["taps36_ms"],
+                 variant=f"{variant}, 9 taps", cases=c,
+                 ptxas=ptxas_of(results["ptxas"], variant + "_t9"))
+        results[key] = e
+
+    # default and prescreen passes in turn, on the host clock and traced
+    t0 = time.perf_counter()
+    dp = dataclasses.replace(p, rect_prescreen=False)
+    sdp = dataclasses.replace(sp, rect_prescreen=False)
+    out["timing"] = alternate_passes({
+        "photometric default": (inputs, dp, {}),
+        "photometric prescreen": (inputs, p, {}),
+        "geometric default": (geom_inputs, dp.with_geom(False), seeds),
+        "geometric prescreen": (geom_inputs, gp, seeds),
+        "sphere photometric default": (s_inputs, sdp, {}),
+        "sphere photometric prescreen": (s_inputs, sp, {}),
+        "sphere geometric default": (s_geom_inputs, sdp.with_geom(False),
+                                     sseeds),
+        "sphere geometric prescreen": (s_geom_inputs, sgp, sseeds)})
+    out["timing_s"] = time.perf_counter() - t0
+    log("phase 17: passes in turn (ms host clock; device ms, idle share): "
+        + json.dumps({k: [v["pass_s"], v["pass_ms"], v["device_ms"],
+                          v["idle_share"]] for k, v in out["timing"].items()}))
+    del res, sres, sgres, seeds, sseeds
+    torch.cuda.empty_cache()
+
+    # the SPHERE scene of phase 11 with prescreen on
+    spre = run_pipeline_phase(
+        dev, SPHERE_PRESCREEN_SCENE, work, sgt, "prescreen",
+        patchmatch=dataclasses.replace(PatchMatchParams(),
+                                       rect_prescreen=True))
+    out["sphere_scene"] = {k: dict(wall_s=r["wall_s"],
+                                   median_rel_depth_err=r[
+                                       "median_rel_depth_err"],
+                                   fused_points=r["fused_points"],
+                                   on_surface=r["on_surface"])
+                           for k, r in (("default", spipe),
+                                        ("prescreen", spre))}
+    runs["sphere scene"] = spre
+    log(f"phase 17: SPHERE scene, default (phase 11) and prescreen: "
+        f"{json.dumps(out['sphere_scene'])}")
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -2439,7 +2770,7 @@ def main() -> int:
 
     # phase 10: the sphere passes at 1024x512x6src, kernels 1 and 4 held
     # against their plain versions at their pole-rotated operands
-    sphere = run_sphere_phase(dev, results)
+    sphere, sphere_problem = run_sphere_phase(dev, results)
 
     # phase 11: the sphere scene through run_pipeline, and convert
     sgt, sscene_s = scenes["sphere"]
@@ -2455,7 +2786,6 @@ def main() -> int:
 
     # phase 13: phase 11's scene by two ranks of reconstruct --distributed
     dpipe = run_distributed_phase(SPHERE_PIPELINE_SCENE, work, spipe)
-    work_dir.cleanup()
 
     # phase 14: the discontinuity golden on the card, at the defaults
     disc = run_discontinuity_phase(dev)
@@ -2466,15 +2796,25 @@ def main() -> int:
     # phase 16: the tile-parallel pass over slots of the card, and the
     # tiled pipeline
     tile = run_tile_phase(dev, inputs, params, bench_gt, geom_inputs)
+
+    # phase 17: rect_prescreen, the bench and SPHERE passes, the 9-tap
+    # builds and the SPHERE scene
+    pre = run_prescreen_phase(dev, (inputs, params, bench_gt, geom_inputs),
+                              sphere_problem, work, sgt, spipe, results)
+    del sphere_problem
+    work_dir.cleanup()
     for p_ in (pphot, pgeom, *one_runs, sphere["phot_pk"], sphere["geom_pk"],
                pipe, spipe, bpipe["batched_checked"], bpipe["multichip"],
-               dpipe, *disc["paths"].values(), *hostile["paths"].values()):
+               dpipe, *disc["paths"].values(), *hostile["paths"].values(),
+               *pre["paths"].values()):
         for key, c in p_["plain_checks"].items():
             e = results[key.rsplit(" ", 1)[-1]]
             e["max_abs_err"] = max(e["max_abs_err"], c["max_abs_err"])
             e["pipeline_checks"] = e.get("pipeline_checks", 0) + c["shapes"]
 
     names = ("rect_ncc", "rect_ncc_geom", "rect_ncc_pk", "rect_ncc_geom_pk",
+             "rect_ncc_t9", "rect_ncc_geom_t9", "rect_ncc_pk_t9",
+             "rect_ncc_geom_pk_t9",
              "pack_src_pairs", "warp_transport", "warp_src_frames",
              "warp_src_disparities", "ncc_window", "ncc_window_geom",
              "window_sample")
@@ -2482,7 +2822,8 @@ def main() -> int:
              sphere["phot"], sphere["geom"], sphere["phot_pk"],
              sphere["geom_pk"], spipe, bpipe["batched_checked"],
              bpipe["batched"], bpipe["multichip"], dpipe,
-             *disc["paths"].values(), *hostile["paths"].values())
+             *disc["paths"].values(), *hostile["paths"].values(),
+             *pre["paths"].values())
     kernels = [dict(name=k, launches=sum(p["launches"][k] for p in paths),
                     **results[k]) for k in names]
     for k in kernels:
@@ -2513,6 +2854,7 @@ def main() -> int:
         "sphere": sphere, "sphere_pipeline": spipe, "convert": conv,
         "batched_pipeline": bpipe, "distributed_pipeline": dpipe,
         "discontinuity": disc, "hostile": hostile, "tile": tile,
+        "prescreen": pre,
         "smoke_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The SASS of the rect kernel's instantiations (``csrc/rect_ncc.cu``):
-instruction counts, the tap loops, and which instantiations are identical
-across trees.
+"""The SASS of the rect kernel's instantiations (``csrc/rect_ncc.cu``; the
+default, 9-tap and runtime-bounds builds of each variant): instruction
+counts, the tap loops, and which instantiations are identical across
+trees.
 
     python scripts/sass_rect_ncc.py [ROOT ...]
 
@@ -37,6 +38,10 @@ BUILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
 FUNC = re.compile(r"Function : (\S+)")
 INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 KERNEL = re.compile(r"rect_ncc_kernelILb(\d)ELb(\d)ELi(\d+)E")
+# the builds by their offsets per axis: the unrolled 11x11 stride-2
+# ("_default", 36 taps) and stride-5 ("_t9", rect_prescreen's 9 taps)
+# patterns, and the runtime tap bounds
+TAP_BUILDS = {"6": "_default", "3": "_t9", "0": "_runtime"}
 
 
 def _variant(mangled: str):
@@ -45,7 +50,7 @@ def _variant(mangled: str):
         return None
     return (("geom" if m.group(1) == "1" else "phot")
             + ("_pk" if m.group(2) == "1" else "")
-            + ("_runtime" if m.group(3) == "0" else "_default"))
+            + TAP_BUILDS[m.group(3)])
 
 
 def _functions(lib: str) -> dict:

@@ -9,8 +9,9 @@ JAX, so they also run on a GPU host without it:
 Tolerances (as chip_smoke.py): warp_transport (``coefficient_transport``,
 every candidate count, map and pass, and on edge fields) bit-exact; rect_ncc
 (both variants, with f32 and with packed taps, every candidate count and
-tap pattern, pinhole and sphere operands; a source frame of bf16 ties and
-NaN words) bit-exact; pack_src_pairs (the packed taps' pair-word frame, of
+tap pattern -- the 9-tap builds of rect_prescreen's coarse pattern at
+C = 1, 2, 5, 8 too -- pinhole and sphere operands; a source frame of bf16
+ties and NaN words) bit-exact; pack_src_pairs (the packed taps' pair-word frame, of
 those frames) word for word;
 warp_src_frames and warp_src_disparities (gate on and off, bench and odd
 frames; source depths with zeros, negatives and a NaN) bit-exact;
@@ -122,6 +123,8 @@ def test_cuda_kernels_match_plain(cuda):
     assert torch.equal(fk, fp) and bool((fk > SENTINEL_THRESH).any())
     assert _lib.LAUNCHES == {"rect_ncc": 1, "rect_ncc_geom": 0,
                              "rect_ncc_pk": 0, "rect_ncc_geom_pk": 0,
+                             "rect_ncc_t9": 0, "rect_ncc_geom_t9": 0,
+                             "rect_ncc_pk_t9": 0, "rect_ncc_geom_pk_t9": 0,
                              "pack_src_pairs": 0, "warp_transport": 1,
                              "warp_src_frames": 1,
                              "warp_src_disparities": 0, "ncc_window": 0,
@@ -164,6 +167,8 @@ def test_geom_kernels_match_plain(cuda):
     assert bool((gk < params.geom_max_cost).any())
     assert _lib.LAUNCHES == {"rect_ncc": 0, "rect_ncc_geom": 1,
                              "rect_ncc_pk": 0, "rect_ncc_geom_pk": 0,
+                             "rect_ncc_t9": 0, "rect_ncc_geom_t9": 0,
+                             "rect_ncc_pk_t9": 0, "rect_ncc_geom_pk_t9": 0,
                              "pack_src_pairs": 0, "warp_transport": 1,
                              "warp_src_frames": 0,
                              "warp_src_disparities": 1, "ncc_window": 0,
@@ -180,6 +185,8 @@ def _chunk_operands(cuda, C, pattern, **change):
     inputs, params, seeds, _ = golden_geom_problem(cuda)
     if pattern == "7x7s1":
         params = dataclasses.replace(params, patch_size=7, radius_increment=1)
+    elif pattern == "11x11s5":   # rect_prescreen's coarse pattern, 9 taps
+        params = dataclasses.replace(params, radius_increment=5)
     params = dataclasses.replace(params, **change)
     rect = prepare_inputs(inputs, params).rect
     H, W = inputs.ref_image.shape
@@ -281,6 +288,37 @@ def test_rect_ncc_packed_taps_match_plain(cuda, C, with_geom, pattern):
     assert _lib.LAUNCHES[name] == 1 and _lib.LAUNCHES[name + "_pk"] == 1
     assert not torch.equal(f32[0] if with_geom else f32,
                            k[0] if with_geom else k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packs", [False, True], ids=["f32", "packed"])
+@pytest.mark.parametrize("with_geom", [False, True], ids=["phot", "geom"])
+@pytest.mark.parametrize("C", [1, 2, 5, 8])
+def test_rect_ncc_coarse_builds_match_plain(cuda, C, with_geom, packs):
+    """The 9-tap builds of kernels 1, 1p, 4 and 4p (rect_prescreen's 11x11
+    stride-5 pattern) at the candidate counts of a prescreened half-step:
+    bit for bit their plain version, counted under the ``_t9`` keys and
+    nowhere else; the build with runtime tap bounds at the same pattern
+    gives the same bits, counted under the key without ``_t9``."""
+    args, sdisp, params, maps, pk = _chunk_operands(
+        cuda, C, "11x11s5", rect_tap_pack=packs)
+    kw = dict(sdisp=sdisp) if with_geom else {}
+    if packs:
+        kw["src_pk"] = pk
+    key = NR.launch_key(params, with_geom)
+    assert key.endswith("_t9") and ("_pk" in key) == packs
+    _lib.reset_launch_counts()
+    k = NR.rect_ncc(*args, params, **kw)
+    rt = NR.rect_ncc(*args, params, **kw, runtime_taps=True)
+    kw.pop("src_pk", None)
+    p = NR.rect_ncc_plain(*args, params, **kw)
+    torch.cuda.synchronize()
+    for a, b, c in (zip(k, p, rt) if with_geom else ((k, p, rt),)):
+        assert a.shape == (C, *maps.fwd_valid.shape)
+        assert torch.equal(a, b) and torch.equal(c, b)
+    assert bool(((p[0] if with_geom else p) < params.cost_max).any())
+    assert {n: v for n, v in _lib.LAUNCHES.items() if v} == {
+        key: 1, key[:-len("_t9")]: 1}
 
 
 @pytest.mark.gpu

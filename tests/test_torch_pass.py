@@ -144,17 +144,25 @@ def test_one_iteration_pass_matches_reference(scene):
 
 
 def test_unported_branches_raise(scene):
-    """``rect_prescreen`` raises; a problem that mixes a SPHERE reference
-    with pinhole sources gets no rectified context (it stays on the exact
-    path, as in the reference; SPHERE problems are ported,
-    tests/test_torch_sphere_*.py); planar-prior and hierarchy passes are
-    ported (tests/test_torch_prior_pass.py)."""
+    """Nothing raises any more: ``rect_prescreen`` is ported
+    (tests/test_torch_prescreen.py) -- ``prepare_inputs`` takes it, and an
+    exact-path pass, where the option has no effect, gives the same bits
+    with it on and off; a problem that mixes a SPHERE reference with pinhole
+    sources gets no rectified context (it stays on the exact path, as in the
+    reference; SPHERE problems are ported, tests/test_torch_sphere_*.py);
+    planar-prior and hierarchy passes are ported
+    (tests/test_torch_prior_pass.py)."""
     cams, tcams, images, _, _ = scene
     inputs = _port_inputs(tcams, images)
     base = port_params(rect_params(cams))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TP.prepare_inputs(inputs, dataclasses.replace(base,
-                                                      rect_prescreen=True))
+    pre = dataclasses.replace(base, rect_prescreen=True)
+    assert TP.prepare_inputs(inputs, pre).rect is not None
+    exact = dataclasses.replace(base, rect_ncc=False, max_iterations=1)
+    on = run_patchmatch(inputs, dataclasses.replace(exact,
+                                                    rect_prescreen=True), KEY)
+    off = run_patchmatch(inputs, exact, KEY)
+    for a, b in zip(on[:3], off[:3]):
+        assert torch.equal(a, b)
     sphere = dataclasses.replace(inputs, ref_cam=dataclasses.replace(
         inputs.ref_cam, model="sphere"))
     mixed = TP.prepare_inputs(sphere, base)

@@ -7,9 +7,10 @@ against the JAX package's, and the discontinuity golden on the port.
 * the occluder occludes at the discontinuity golden's size (96x64x4,
   focal 80): an edge band over 3% of the frame and a depth ratio over 1.5
   (tests/test_discontinuity.py);
-* the port of tests/test_discontinuity.py's three paths (exact, windowed,
-  rectified; prescreen is not ported), at the same gates: median relative
-  depth error < 0.02 and < 0.06 in the edge band.  Marked slow as there.
+* the port of tests/test_discontinuity.py's four cases (the exact,
+  windowed and rectified paths, and the rectified one with
+  ``rect_prescreen``), at the same gates: median relative depth error <
+  0.02 and < 0.06 in the edge band.  Marked slow as there.
 """
 
 import dataclasses
@@ -93,7 +94,8 @@ def test_box_scene_has_occlusions():
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("path", ["exact", "window", "rect"])
+@pytest.mark.parametrize("path", ["exact", "window", "rect",
+                                  "rect_prescreen"])
 def test_discontinuity_quality(path):
     from acmmp_spherical_torch.config import PatchMatchParams
     from acmmp_spherical_torch.core.camera import stack_cameras
@@ -103,9 +105,10 @@ def test_discontinuity_quality(path):
 
     tcams, images, gt, band = _box_scene()
     fast, rect = {"exact": (False, False), "window": (True, False),
-                  "rect": (True, True)}[path]
+                  "rect": (True, True), "rect_prescreen": (True, True)}[path]
     params = dataclasses.replace(PatchMatchParams(), fast_ncc=fast,
-                                 rect_ncc=rect, rect_init=rect)
+                                 rect_ncc=rect, rect_init=rect,
+                                 rect_prescreen=path == "rect_prescreen")
     imgs = torch.from_numpy(images)
     inputs = PatchMatchInputs(
         ref_image=imgs[0], src_images=imgs[1:], ref_cam=tcams[0],

@@ -21,9 +21,10 @@ reference's packed ``rect_batched_ncc`` runs once per case, op by op (its
     cost -- runs in the fast set; the others are marked slow;
 (3) the back-map: the port's ``backmap(pack=True)`` against the reference's
     packed back-map (``run_rect_kernel`` with its pallas_call replaced by
-    the given cost planes) at C=1 (not packed), C=5 (odd: a zero pad) and
-    C=9, with_geom too: bit for bit, with the fill of the pixels a random
-    fifth of the backward map leaves unclaimed at its exact f32 value;
+    the given cost planes) at C=1 (not packed), C=5 (odd: a zero pad), C=9,
+    and the even C=2 and C=8 of a prescreened half-step, with_geom too: bit
+    for bit, with the fill of the pixels a random fifth of the backward map
+    leaves unclaimed at its exact f32 value;
 (4) ``rect_batched_ncc`` and ``sphere_batched_ncc`` with both packs on
     against the JAX functions (the pinhole one run op by op: the run of
     (1)), on all three pairs: the tolerances of the
@@ -233,8 +234,9 @@ def test_pallas_packed_taps_are_f32_taps_on_a_rounded_source(
         TNR.round_bf16(setup["tctx"].rect_src).numpy(), np.asarray(rounded))
 
 
-@pytest.mark.parametrize("C,with_geom", [(1, False), (5, False), (9, False),
-                                         (5, True), (9, True)])
+@pytest.mark.parametrize("C,with_geom", [(1, False), (2, False), (5, False),
+                                         (8, False), (9, False), (5, True),
+                                         (9, True)])
 def test_packed_backmap_matches_reference(setup, monkeypatch, C, with_geom):
     """(3) the packed back-map on identical cost planes, bit for bit; the
     fill keeps its exact f32 value (fills chosen off the bf16 grid)."""
