@@ -61,8 +61,8 @@
 //   half-step.  Any other pattern the wrapper accepts (radius <= 8, <= 64
 //   taps) runs through the instantiation with runtime bounds: the same
 //   kernel, which at the default pattern measured 14-30% slower than the
-//   unrolled one.  The caller names the build it wants (TapBuild); a named
-//   unrolled build launches only at its own pattern, never falling back.
+//   unrolled one.  The caller can ask for the runtime-bounds build at
+//   any pattern (runtime_taps), to time the two side by side.
 // * kThreads = 256 (two rows of the tile at a time) with
 //   __launch_bounds__(256, 4), which caps a thread at 64 registers
 //   (ptxas.log beside the library has the count and the spills).
@@ -488,35 +488,28 @@ rect_ncc_kernel(const __grid_constant__ Args a) {
   }
 }
 
-// The builds a caller can name: the instantiation with runtime tap bounds,
-// or an unrolled one, which launches only at its own (radius, increment).
-enum TapBuild { kRuntimeTaps = 0, kTaps36 = 1, kTaps9 = 2 };
-
 template <bool kGeom, bool kTapPack>
-int launch_pattern(const Args& a, int build, cudaStream_t stream) {
+void launch_pattern(const Args& a, bool runtime_taps, cudaStream_t stream) {
   const int smem = 3 * (kTileH + 2 * a.radius) * kBW * (int)sizeof(float);
   const dim3 grid(a.N, a.S);
-  if (build == kTaps36 && a.radius == 5 && a.increment == 2)
+  if (!runtime_taps && a.radius == 5 && a.increment == 2)
     rect_ncc_kernel<kGeom, kTapPack, 6, 5, 2>   // the default 11x11 stride-2
         <<<grid, kThreads, smem, stream>>>(a);
-  else if (build == kTaps9 && a.radius == 5 && a.increment == 5)
+  else if (!runtime_taps && a.radius == 5 && a.increment == 5)
     rect_ncc_kernel<kGeom, kTapPack, 3, 5, 5>   // prescreen's 11x11 stride-5
         <<<grid, kThreads, smem, stream>>>(a);
-  else if (build == kRuntimeTaps)
+  else
     rect_ncc_kernel<kGeom, kTapPack, 0, 0, 0>
         <<<grid, kThreads, smem, stream>>>(a);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaSuccess;
 }
 
 template <bool kGeom>
-int launch_rect_ncc(const Args& a, int build, cudaStream_t stream) {
+int launch_rect_ncc(const Args& a, bool runtime_taps, cudaStream_t stream) {
   if (a.N > 0 && a.S > 0) {
-    const int err = a.src_pk != nullptr
-                        ? launch_pattern<kGeom, true>(a, build, stream)
-                        : launch_pattern<kGeom, false>(a, build, stream);
-    if (err != (int)cudaSuccess) return err;
+    if (a.src_pk != nullptr)
+      launch_pattern<kGeom, true>(a, runtime_taps, stream);
+    else
+      launch_pattern<kGeom, false>(a, runtime_taps, stream);
   }
   return (int)cudaGetLastError();
 }
@@ -526,24 +519,24 @@ int launch_rect_ncc(const Args& a, int build, cudaStream_t stream) {
 // srow (S, 128) f32; tile_oy, tile_ox (S, N) int32 storage-frame origins;
 // rect_ref, rect_src (S, Hp, Wp) f32 padded frames; D (C, S, 8N, 128) f32;
 // AB (C, S, 8N, 128) bf16 pair words; fwd_valid (S, 8N, 128) f32;
-// out (C, S, 8N, 128) f32.  radius <= 8, at most 64 taps.  build: a
-// TapBuild; an unrolled build at another pattern returns
-// cudaErrorInvalidValue and launches nothing.  src_pk (S, Hp, Wp) the pair
-// words of rect_src (pack_src_pairs.cu), or null: non-null runs the
-// packed-tap variant, which reads src_pk in place of rect_src.
+// out (C, S, 8N, 128) f32.  radius <= 8, at most 64 taps.  runtime_taps
+// non-zero runs the build with runtime tap bounds at any pattern.  src_pk
+// (S, Hp, Wp) the pair words of rect_src (pack_src_pairs.cu), or null:
+// non-null runs the packed-tap variant, which reads src_pk in place of
+// rect_src.
 extern "C" int acmmp_rect_ncc(const float* srow, const int32_t* tile_oy,
                               const int32_t* tile_ox, const float* rect_ref,
                               const float* rect_src, const float* D,
                               const uint32_t* AB, const float* fwd_valid,
                               float* out, int C, int S, int N, int Hp, int Wp,
                               int win_w, int radius, int increment,
-                              int build, const uint32_t* src_pk,
+                              int runtime_taps, const uint32_t* src_pk,
                               float inv_2sc, float clampv, float cost_max,
                               double inv_2ss, cudaStream_t stream) {
   const Args a{srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
                out, nullptr, nullptr, C, S, N, Hp, Wp, win_w, radius,
                increment, inv_2sc, clampv, cost_max, 0.0f, inv_2ss, src_pk};
-  return launch_rect_ncc<false>(a, build, stream);
+  return launch_rect_ncc<false>(a, runtime_taps != 0, stream);
 }
 
 // The with_geom variant: also sdisp (S, Hp, Wp) f32 in and the geometric
@@ -556,12 +549,12 @@ extern "C" int acmmp_rect_ncc_geom(const float* srow, const int32_t* tile_oy,
                                    float* out, const float* sdisp, float* gout,
                                    int C, int S, int N, int Hp, int Wp,
                                    int win_w, int radius, int increment,
-                                   int build, const uint32_t* src_pk,
+                                   int runtime_taps, const uint32_t* src_pk,
                                    float inv_2sc, float clampv,
                                    float cost_max, float geom_max,
                                    double inv_2ss, cudaStream_t stream) {
   const Args a{srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
                out, sdisp, gout, C, S, N, Hp, Wp, win_w, radius, increment,
                inv_2sc, clampv, cost_max, geom_max, inv_2ss, src_pk};
-  return launch_rect_ncc<true>(a, build, stream);
+  return launch_rect_ncc<true>(a, runtime_taps != 0, stream);
 }

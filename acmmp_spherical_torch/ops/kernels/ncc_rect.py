@@ -230,22 +230,19 @@ def coefficient_transport(rect: RectContext, maps, normals, ws):
 # kernel 1: the rectified NCC cost
 # ---------------------------------------------------------------------------
 
-# The unrolled builds of kernel 1 (csrc/rect_ncc.cu, ``TapBuild``) by tap
-# pattern (radius, increment), with the suffix of their launch keys: the
-# default 11x11 stride-2 pattern (36 taps) and ``rect_prescreen``'s coarse
-# 11x11 stride-5 pattern (9 taps).  Any other pattern runs the build with
-# runtime tap bounds (``RUNTIME_TAPS``), counted under the key without a
-# suffix.
-RUNTIME_TAPS = 0
-UNROLLED_TAPS = {(5, 2): (1, ""), (5, 5): (2, "_t9")}
-
-
-def _tap_build(params: PatchMatchParams, runtime_taps: bool = False):
-    """(build, key suffix) of a launch at ``params``' tap pattern."""
-    if runtime_taps:
-        return RUNTIME_TAPS, ""
-    return UNROLLED_TAPS.get((params.patch_size // 2, params.radius_increment),
-                             (RUNTIME_TAPS, ""))
+# The tap patterns (radius, increment) that kernel 1 has unrolled builds
+# of (csrc/rect_ncc.cu, ``launch_pattern``), with the suffix of their
+# launch keys: the default 11x11 stride-2 pattern (36 taps) and
+# ``rect_prescreen``'s coarse 11x11 stride-5 pattern (9 taps).  Any other
+# pattern runs the build with runtime tap bounds, counted under the key
+# without a suffix.
+UNROLLED_TAPS = {(5, 2): "", (5, 5): "_t9"}
+# the builds by their offsets per axis (the kernel's kNOff template
+# argument, which names them in ptxas' log and the SASS): the unrolled
+# patterns and the runtime tap bounds (0)
+TAP_BUILDS = {"0": "_runtime", **{str(len(range(-r, r + 1, i))): s or
+                                  "_default"
+                                  for (r, i), s in UNROLLED_TAPS.items()}}
 
 
 def launch_key(params: PatchMatchParams, with_geom: bool,
@@ -253,9 +250,10 @@ def launch_key(params: PatchMatchParams, with_geom: bool,
     """The ``LAUNCHES`` key that a ``rect_ncc`` launch at ``params`` counts
     under: ``rect_ncc``, ``_geom`` for the with_geom variant, ``_pk`` for
     packed taps, ``_t9`` for the 9-tap build of the coarse pattern."""
+    pattern = (params.patch_size // 2, params.radius_increment)
     return ("rect_ncc" + ("_geom" if with_geom else "")
             + ("_pk" if params.rect_tap_pack else "")
-            + _tap_build(params, runtime_taps)[1])
+            + ("" if runtime_taps else UNROLLED_TAPS.get(pattern, "")))
 
 
 def _weight_consts(params: PatchMatchParams):
@@ -422,9 +420,8 @@ def rect_ncc(srow, tile_oy, tile_ox, rect_ref, rect_src, D, AB, fwd_valid,
     common = (srow.data_ptr(), tile_oy.data_ptr(), tile_ox.data_ptr(),
               rect_ref.data_ptr(), rect_src.data_ptr(), D.data_ptr(),
               AB.data_ptr(), fwd_valid.data_ptr(), out.data_ptr())
-    build = _tap_build(params, runtime_taps)[0]
-    shape = (C, S, N, Hp, Wp, win_w, r, params.radius_increment, build,
-             src_pk.data_ptr() if pack else None)
+    shape = (C, S, N, Hp, Wp, win_w, r, params.radius_increment,
+             int(runtime_taps), src_pk.data_ptr() if pack else None)
     key = launch_key(params, sdisp is not None, runtime_taps)
     if sdisp is None:
         with torch.cuda.device(dev):

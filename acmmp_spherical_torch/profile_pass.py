@@ -114,12 +114,10 @@ def timing(kind, inputs, params, seeds, reps=3):
         pass_ms=1e3 * sum(walls) / reps, pass_s=walls)
 
 
-def trace(result, inputs, params, seeds, host_ops: bool = True):
-    """Add the device time of one traced pass to ``timing``'s result.
-    ``host_ops=False`` records the device activity alone: the same device
-    kernels and times, traced in about half the host time."""
-    acts = ([torch.profiler.ProfilerActivity.CPU] if host_ops else []) + [
-        torch.profiler.ProfilerActivity.CUDA]
+def trace(result, inputs, params, seeds):
+    """Add the device time of one traced pass to ``timing``'s result (the
+    device activity alone is recorded)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         run_patchmatch(inputs, params, 4, **seeds)
         torch.cuda.synchronize()

@@ -314,6 +314,9 @@ PRESCREEN_PHOT_LAUNCHES = dict(full=13, coarse=12)
 PRESCREEN_GEOM_LAUNCHES = dict(full=9, coarse=4)
 PRESCREEN_TIMED = 3      # default and prescreen passes in turn, after a warm
 #                          pair
+PRESCREEN_TRACED = ("photometric default", "photometric prescreen",
+                    "sphere photometric default",
+                    "sphere photometric prescreen")   # device-traced
 T9_CANDIDATES = (8, 5, 2, 1)   # the candidate counts of a prescreened pass
 # the SPHERE scene of phase 11 with prescreen on: its 9-tap builds launch
 SPHERE_PRESCREEN_SCENE = dict(
@@ -626,11 +629,6 @@ def packed_entry(cases: dict, ptxas: dict, variant: str):
     return e
 
 
-# the rect kernel's builds by their offsets per axis (the kNOff template
-# argument): the unrolled default and coarse patterns, and runtime bounds
-TAP_BUILDS = {"6": "_default", "3": "_t9", "0": "_runtime"}
-
-
 def rect_ptxas(path) -> dict:
     """{variant: {registers, spill_stores, spill_loads}} of the
     rect_ncc_kernel instantiations in the build's ptxas log; a variant is
@@ -639,6 +637,8 @@ def rect_ptxas(path) -> dict:
     rect_prescreen) or "_runtime" (tap bounds read at run time); and of the
     pair-frame kernel, "pack_src_pairs"."""
     import re
+
+    from acmmp_spherical_torch.ops.kernels.ncc_rect import TAP_BUILDS
 
     out, cur = {}, None
     if not path.exists():
@@ -860,7 +860,7 @@ def check_sphere_case(name, ctx, normals, ws, parity, p, with_geom):
 def run_sphere_phase(dev, results):
     """Phase 10: the sphere passes at 1024x512x6src; returns their numbers,
     the photometric and geometric paths under ``phot`` and ``geom``, and
-    the problem (inputs, geometric inputs with the f32 passes' source
+    the problem (inputs, geometric inputs with the packed passes' source
     depths, the f32 parameters, ground truth) for phase 17."""
     import torch
 
@@ -994,7 +994,7 @@ def run_sphere_phase(dev, results):
                                  f"{e['errors']} >= {SPHERE_BAND_ERR_MAX}")
     out.update(cases=cases, phot=phot, geom=geom, phot_pk=pphot,
                geom_pk=pgeom)
-    return out, (inputs, geom_inputs, params, gt)
+    return out, (inputs, pg_inputs, params, gt)
 
 
 def check_convert():
@@ -1530,10 +1530,12 @@ def run_pipeline_phase(dev, sc, work, gt, name, *, mesh=None, checked=True,
     """Phase 9 (pinhole), 11 (SPHERE), 12 (batched over ``mesh``) or 17
     (``patchmatch``: the passes' parameters in place of the defaults'):
     ``run_pipeline`` on a fresh copy ``name`` of the ring ``sc`` under
-    ``work``; returns its numbers, with its folder under ``root`` and the
-    launch counts of the run under ``launches``.  ``checked``: hold the
-    first launch of each kernel at each operand shape against its plain
-    version (the checks' time is left out of ``wall_s``)."""
+    ``work``; returns its numbers, with its folder under ``root``, the
+    launch counts of the run under ``launches`` and each view's error
+    before the geometric passes of the last scale (its ``depths.dmb``, the
+    hierarchy pass's) under ``hier_median_rel_depth_err``.  ``checked``:
+    hold the first launch of each kernel at each operand shape against its
+    plain version (the checks' time is left out of ``wall_s``)."""
     import numpy as np
     import torch
 
@@ -1577,9 +1579,9 @@ def run_pipeline_phase(dev, sc, work, gt, name, *, mesh=None, checked=True,
         "photometric" if s == 1 else "hierarchy", "geom0", "geom1")]
     entries = sum(len(set(manifest.get(k, [])) & set(range(n_views)))
                   for k in expected)
-    errs = [depth_error_stats(read_depth_dmb(sp.depth_file(v, geom=True)),
-                              gt[v], border=sc["err_border"])
-            ["median_rel_err"] for v in range(n_views)]
+    errs, hier = ([depth_error_stats(read_depth_dmb(sp.depth_file(
+        v, geom=geom)), gt[v], border=sc["err_border"])["median_rel_err"]
+        for v in range(n_views)] for geom in (True, False))
     pts = read_ply(sp.ply_file())[0]
     on_surface = float(np.mean(cube_surface_distance(pts, room.half)
                                < sc["tau"])) if len(pts) else 0.0
@@ -1596,6 +1598,7 @@ def run_pipeline_phase(dev, sc, work, gt, name, *, mesh=None, checked=True,
     out = dict(root=str(root), wall_s=wall_s, timings_s=timings.totals,
                timing_counts=timings.counts, peak_mem_bytes=peak,
                manifest_entries=entries, median_rel_depth_err=errs,
+               hier_median_rel_depth_err=hier,
                fused_points=n_points, on_surface=on_surface,
                launches=launches, launches_by_round=by_round,
                prior_rounds=scopes.prior_rounds, plain_checks=checks,
@@ -2271,12 +2274,12 @@ def prescreen_pass(name, fn, params, geom: bool):
     return res, run
 
 
-def alternate_passes(cases):
+def alternate_passes(cases, traced):
     """The passes ``cases`` {label: (inputs, params, seeds)} in turn on the
     host clock: one warm pass each, then ``PRESCREEN_TIMED`` rounds of each
-    in turn (keys 1, 2, ...); then one traced pass each
-    (``profile_pass.trace`` of the device activity alone: device time, idle
-    share, device kernels).  Returns {label: numbers}."""
+    in turn (keys 1, 2, ...); then one traced pass of each label in
+    ``traced`` (``profile_pass.trace``: device time, idle share, device
+    kernels).  Returns {label: numbers}."""
     import torch
 
     from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch
@@ -2295,7 +2298,8 @@ def alternate_passes(cases):
             out[k]["pass_s"].append(time.perf_counter() - t0)
     for k, (inputs, params, seeds) in cases.items():
         out[k]["pass_ms"] = 1e3 * sum(out[k]["pass_s"]) / PRESCREEN_TIMED
-        trace(out[k], inputs, params, seeds, host_ops=False)
+        if k in traced:
+            trace(out[k], inputs, params, seeds)
     return out
 
 
@@ -2380,15 +2384,16 @@ def run_prescreen_phase(dev, bench, sphere_problem, work, sgt, spipe,
                         results):
     """Phase 17: ``rect_prescreen`` on the card, both bf16 packs on (the
     defaults).  ``bench``: (inputs, f32 params, ground truth, geometric
-    inputs with phase 4's source depths); ``sphere_problem``: phase 10's
-    (inputs, geometric inputs, f32 params, ground truth).  The pinhole
-    photometric pass and the geometric pass seeded from it, the same two
-    with the packs off (kernels 1 and 4's 9-tap builds), and the SPHERE
+    inputs with phase 4's source depths, with phase 4b's);
+    ``sphere_problem``: phase 10's (inputs, geometric inputs with the
+    packed passes' source depths, f32 params, ground truth).  The pinhole
+    photometric pass and the geometric pass seeded from it, with the source
+    depths of the chain it is compared with (phase 4b's packed, phase 4's
+    with the packs off: kernels 1 and 4's 9-tap builds), and the SPHERE
     photometric and geometric passes, each once through ``prescreen_pass``;
-    gates: the packed pinhole passes' median relative depth error below
+    gates: each pinhole pair's median relative depth error below
     ``DEPTH_ERR_MAX``, the geometric one below the photometric one, the
-    SPHERE band errors below ``SPHERE_BAND_ERR_MAX``; the f32 passes'
-    errors are printed (their default passes sit at the bench gate).
+    SPHERE band errors below ``SPHERE_BAND_ERR_MAX``.
     Then the 9-tap builds timed on the passes' operands (``t9_cases``), the
     default and prescreen passes of each kind in turn (``alternate_passes``)
     and phase 11's SPHERE scene through ``run_pipeline`` with prescreen on
@@ -2403,7 +2408,8 @@ def run_prescreen_phase(dev, bench, sphere_problem, work, sgt, spipe,
     from acmmp_spherical_torch.ops.propagate import prepare_inputs
     from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch
 
-    inputs, params, gt, geom_inputs = bench
+    t_phase = time.perf_counter()
+    inputs, params, gt, geom_inputs, pk_geom_inputs = bench
     out = dict(paths={}, errors={})
     runs = out["paths"]
 
@@ -2411,13 +2417,14 @@ def run_prescreen_phase(dev, bench, sphere_problem, work, sgt, spipe,
         p = dataclasses.replace(params, rect_tap_pack=packs,
                                 rect_backmap_pack=packs, rect_prescreen=True)
         gp = p.with_geom(multi_geometry=False)
+        src = pk_geom_inputs if packs else geom_inputs
         res, runs[f"{tag} photometric"] = prescreen_pass(
             f"prescreen {tag} photometric", lambda r: run_patchmatch(
                 inputs, p, r), p, False)
         seeds = dict(seed_normal_world=res[1], seed_depth=res[0])
         gres, runs[f"{tag} geometric"] = prescreen_pass(
             f"prescreen {tag} geometric", lambda r: run_patchmatch(
-                geom_inputs, gp, 100 + r, **seeds), gp, True)
+                src, gp, 100 + r, **seeds), gp, True)
         out["errors"][tag] = dict(
             photometric=median_rel_err(res[0], gt[0]),
             geometric=median_rel_err(gres[0], gt[0]))
@@ -2425,13 +2432,14 @@ def run_prescreen_phase(dev, bench, sphere_problem, work, sgt, spipe,
 
     p, gp, res, seeds = pinhole("packed", True)
     pinhole("f32", False)
-    e = out["errors"]["packed"]
     log(f"phase 17: prescreen bench passes, median rel depth err "
-        f"{out['errors']} (gates {DEPTH_ERR_MAX} and below the photometric "
-        "for the packed passes)")
-    if not (e["photometric"] < DEPTH_ERR_MAX and e["geometric"]
-            < DEPTH_ERR_MAX and e["geometric"] < e["photometric"]):
-        raise AssertionError(f"prescreen bench passes: {e}")
+        f"{out['errors']} (gates {DEPTH_ERR_MAX}, the geometric pass below "
+        "the photometric one)")
+    for tag in ("packed", "f32"):
+        e = out["errors"][tag]
+        if not (e["photometric"] < DEPTH_ERR_MAX and e["geometric"]
+                < DEPTH_ERR_MAX and e["geometric"] < e["photometric"]):
+            raise AssertionError(f"prescreen {tag} bench passes: {e}")
 
     s_inputs, s_geom_inputs, s_params, s_gt = sphere_problem
     sp = dataclasses.replace(s_params, rect_tap_pack=True,
@@ -2455,7 +2463,7 @@ def run_prescreen_phase(dev, bench, sphere_problem, work, sgt, spipe,
 
     # the 9-tap builds on the passes' own operands
     t0 = time.perf_counter()
-    ctx = prepare_inputs(geom_inputs, gp).rect
+    ctx = prepare_inputs(pk_geom_inputs, gp).rect
     cases = t9_cases("pinhole", ctx, plane_field(inputs.ref_cam, *res[:2]),
                      p, NR.coefficient_transport)
     del ctx
@@ -2490,17 +2498,19 @@ def run_prescreen_phase(dev, bench, sphere_problem, work, sgt, spipe,
     out["timing"] = alternate_passes({
         "photometric default": (inputs, dp, {}),
         "photometric prescreen": (inputs, p, {}),
-        "geometric default": (geom_inputs, dp.with_geom(False), seeds),
-        "geometric prescreen": (geom_inputs, gp, seeds),
+        "geometric default": (pk_geom_inputs, dp.with_geom(False), seeds),
+        "geometric prescreen": (pk_geom_inputs, gp, seeds),
         "sphere photometric default": (s_inputs, sdp, {}),
         "sphere photometric prescreen": (s_inputs, sp, {}),
         "sphere geometric default": (s_geom_inputs, sdp.with_geom(False),
                                      sseeds),
-        "sphere geometric prescreen": (s_geom_inputs, sgp, sseeds)})
+        "sphere geometric prescreen": (s_geom_inputs, sgp, sseeds)},
+        PRESCREEN_TRACED)
     out["timing_s"] = time.perf_counter() - t0
     log("phase 17: passes in turn (ms host clock; device ms, idle share): "
-        + json.dumps({k: [v["pass_s"], v["pass_ms"], v["device_ms"],
-                          v["idle_share"]] for k, v in out["timing"].items()}))
+        + json.dumps({k: [v["pass_s"], v["pass_ms"], v.get("device_ms"),
+                          v.get("idle_share")]
+                      for k, v in out["timing"].items()}))
     del res, sres, sgres, seeds, sseeds
     torch.cuda.empty_cache()
 
@@ -2512,6 +2522,8 @@ def run_prescreen_phase(dev, bench, sphere_problem, work, sgt, spipe,
     out["sphere_scene"] = {k: dict(wall_s=r["wall_s"],
                                    median_rel_depth_err=r[
                                        "median_rel_depth_err"],
+                                   hier_median_rel_depth_err=r[
+                                       "hier_median_rel_depth_err"],
                                    fused_points=r["fused_points"],
                                    on_surface=r["on_surface"])
                            for k, r in (("default", spipe),
@@ -2519,6 +2531,8 @@ def run_prescreen_phase(dev, bench, sphere_problem, work, sgt, spipe,
     runs["sphere scene"] = spre
     log(f"phase 17: SPHERE scene, default (phase 11) and prescreen: "
         f"{json.dumps(out['sphere_scene'])}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 17: {out['phase_s']:.1f} s")
     return out
 
 
@@ -2632,7 +2646,6 @@ def main() -> int:
             pg_inputs, pg_params, 100 + r, seed_normal_world=pout[1],
             seed_depth=pout[0]))
     pgrel = median_rel_err(pgout[0], gt[0])
-    del pg_inputs
     log(f"packed: photometric median rel depth err {prel} (f32 {rel}), "
         f"geometric {pgrel} (f32 {grel})")
     for e in (pphot, pgeom):
@@ -2799,9 +2812,10 @@ def main() -> int:
 
     # phase 17: rect_prescreen, the bench and SPHERE passes, the 9-tap
     # builds and the SPHERE scene
-    pre = run_prescreen_phase(dev, (inputs, params, bench_gt, geom_inputs),
-                              sphere_problem, work, sgt, spipe, results)
-    del sphere_problem
+    pre = run_prescreen_phase(
+        dev, (inputs, params, bench_gt, geom_inputs, pg_inputs),
+        sphere_problem, work, sgt, spipe, results)
+    del sphere_problem, pg_inputs
     work_dir.cleanup()
     for p_ in (pphot, pgeom, *one_runs, sphere["phot_pk"], sphere["geom_pk"],
                pipe, spipe, bpipe["batched_checked"], bpipe["multichip"],

@@ -31,6 +31,9 @@ import subprocess
 import sys
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(HERE))
+from acmmp_spherical_torch.ops.kernels.ncc_rect import TAP_BUILDS  # noqa: E402
+
 BUILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
          "from acmmp_spherical_torch.ops.kernels import _lib, ncc_rect; "
          "print(hasattr(ncc_rect, 'pack_src_pairs')); "
@@ -38,10 +41,6 @@ BUILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
 FUNC = re.compile(r"Function : (\S+)")
 INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 KERNEL = re.compile(r"rect_ncc_kernelILb(\d)ELb(\d)ELi(\d+)E")
-# the builds by their offsets per axis: the unrolled 11x11 stride-2
-# ("_default", 36 taps) and stride-5 ("_t9", rect_prescreen's 9 taps)
-# patterns, and the runtime tap bounds
-TAP_BUILDS = {"6": "_default", "3": "_t9", "0": "_runtime"}
 
 
 def _variant(mangled: str):

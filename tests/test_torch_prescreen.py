@@ -30,10 +30,19 @@ the JAX package.
     package, the port on the JAX package's own context, from the same
     state: the accept masks agree on >= 99%, and the costs by the
     end-to-end shares of test_torch_sphere_rect.py (mean difference < 1e-3,
-    < 1% of them more than 1e-2 apart).
+    < 1% of them more than 1e-2 apart);
+(6) the tap patterns with unrolled builds of kernel 1: the coarse pattern
+    is one, its launches count under the ``_t9`` keys (any other pattern,
+    and the runtime-bounds build, under the key without the suffix), and
+    the kernel source instantiates exactly those patterns beside the
+    runtime-bounds build.
+
+Case (1) is marked slow: its reference half-step compiles four
+interpreted kernel calls (about 90 s on a CPU); case (2) compiles three.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -148,6 +157,7 @@ def prepared(scene):
                 seeds=dict(seed_normal_world=seed_n, seed_depth=seed_d))
 
 
+@pytest.mark.slow
 def test_photometric_halfstep_from_identical_state(scene, prepared):
     """(1)"""
     _check_halfstep(*_halfstep_pair(prepared["jin"], prepared["tin"],
@@ -231,6 +241,41 @@ def test_prescreen_pass_quality(scene):
     assert np.median(rel[8:-8, 8:-8]) < 0.01, np.median(rel[8:-8, 8:-8])
 
 
+def test_unrolled_tap_builds_and_launch_keys():
+    """(6)"""
+    import re
+
+    from acmmp_spherical_torch.config import PatchMatchParams
+    from acmmp_spherical_torch.ops.kernels import _lib
+
+    p = PatchMatchParams()
+    assert p.rect_tap_pack
+    coarse = TP.coarse_params(p)
+    assert (coarse.patch_size // 2, coarse.radius_increment) == (5, 5)
+    f32 = dataclasses.replace(coarse, rect_tap_pack=False)
+    assert TNR.launch_key(p, False) == "rect_ncc_pk"
+    assert TNR.launch_key(coarse, False) == "rect_ncc_pk_t9"
+    assert TNR.launch_key(coarse, True) == "rect_ncc_geom_pk_t9"
+    assert TNR.launch_key(f32, False) == "rect_ncc_t9"
+    assert TNR.launch_key(coarse, True, runtime_taps=True) == \
+        "rect_ncc_geom_pk"
+    for other in (dataclasses.replace(p, radius_increment=3),
+                  dataclasses.replace(coarse, patch_size=9)):
+        assert TNR.launch_key(other, False) == "rect_ncc_pk"
+    for q in (p, coarse, f32):
+        for geom in (False, True):
+            assert TNR.launch_key(q, geom) in _lib.LAUNCHES
+    assert TNR.TAP_BUILDS == {"0": "_runtime", "6": "_default", "3": "_t9"}
+    # the kernel source unrolls exactly these patterns beside the
+    # runtime-bounds build
+    src = (_lib.CSRC / "rect_ncc.cu").read_text()
+    built = set(re.findall(
+        r"rect_ncc_kernel<kGeom, kTapPack, (\d+), (\d+), (\d+)>", src))
+    assert built == {("0", "0", "0")} | {
+        (str(len(range(-r, r + 1, i))), str(r), str(i))
+        for r, i in TNR.UNROLLED_TAPS}
+
+
 @pytest.mark.slow
 def test_sphere_halfstep_from_identical_state():
     """(5)"""
@@ -266,3 +311,80 @@ def test_sphere_halfstep_from_identical_state():
     dc = np.abs(np.asarray(out.cost) - tout.cost.numpy())
     assert dc.mean() < 1e-3 and (dc > 1e-2).mean() < 0.01, (
         dc.mean(), (dc > 1e-2).mean())
+
+
+def sphere_pipeline_witness(work, width=128, height=64, n_views=4,
+                            size_bound=64):
+    """Both packages' ``run_pipeline`` on one equirect CubeRoom ring
+    (``n_views`` views each taking the others, two pyramid scales at
+    ``size_bound``), rectified path on, one problem at a time (the serial
+    order of the multi-geometry passes), ``rect_prescreen`` off and on: per
+    package and setting, each view's median relative depth error of its
+    final-scale hierarchy pass (``depths.dmb``) and of its final depth
+    (``depths_geom.dmb``), and the fused points.  The JAX package runs its
+    Pallas kernels in interpret mode (minutes per run)."""
+    import pathlib
+    import shutil
+
+    from acmmp_spherical_tpu.config import PatchMatchParams as JPM
+    from acmmp_spherical_tpu.config import PipelineConfig as JPC
+    from acmmp_spherical_tpu.core.camera import SPHERE
+    from acmmp_spherical_tpu.io.dmb import read_depth_dmb
+    from acmmp_spherical_tpu.io.scene import ScenePaths
+    from acmmp_spherical_tpu.pipeline.multiscale import (
+        run_pipeline as jax_pipeline,
+    )
+    from acmmp_spherical_tpu.utils.synthetic import (
+        CubeRoom, make_ring_of_cameras, render_scene,
+        write_synthetic_scene_to_disk,
+    )
+
+    from acmmp_spherical_torch.config import PatchMatchParams as TPM
+    from acmmp_spherical_torch.config import PipelineConfig as TPC
+    from acmmp_spherical_torch.pipeline.multiscale import (
+        run_pipeline as port_pipeline,
+    )
+
+    work = pathlib.Path(work)
+    cams = make_ring_of_cameras(n_views, model=SPHERE, width=width,
+                                height=height)
+    images, depths, _ = render_scene(cams, CubeRoom(), width, height)
+    write_synthetic_scene_to_disk(work / "scene", cams, images)
+
+    def errors(sp, geom):
+        return [float(np.median(np.abs(read_depth_dmb(sp.depth_file(
+            v, geom=geom)) - depths[v]) / depths[v])) for v in range(n_views)]
+
+    out = {}
+    for name, run, pm, pc in (
+            ("port", lambda root, cfg: port_pipeline(root, cfg, device="cpu"),
+             TPM, TPC),
+            ("jax", jax_pipeline, JPM, JPC)):
+        for prescreen in (False, True):
+            root = work / f"{name}_{int(prescreen)}"
+            shutil.copytree(work / "scene", root)
+            cfg = pc(rect_ncc="on", size_bound=size_bound,
+                     batch_problems="off", patchmatch=dataclasses.replace(
+                         pm(), rect_prescreen=prescreen))
+            points = run(root, cfg)
+            sp = ScenePaths(root)
+            out[f"{name} prescreen={prescreen}"] = dict(
+                hierarchy=errors(sp, False), final=errors(sp, True),
+                fused_points=int(points))
+            print(json.dumps({f"{name} prescreen={prescreen}":
+                              out[f"{name} prescreen={prescreen}"]}),
+                  flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_prescreen.py
+    # [WORK_DIR]: the SPHERE pipeline witness (tens of minutes on a CPU)
+    import sys
+    import tempfile
+
+    import conftest  # noqa: F401  (JAX on the CPU)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        print(json.dumps(sphere_pipeline_witness(
+            sys.argv[1] if len(sys.argv) > 1 else tmp)), flush=True)
