@@ -59,6 +59,7 @@ from acmmp_spherical_torch.ops.sphere_rect import (
 from acmmp_spherical_torch.ops.view_select import (
     joint_view_selection, view_selection_priors,
 )
+from acmmp_spherical_torch.utils.log import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,6 +243,7 @@ def _fast_cost_vectors(inputs, ctx: RefTapContext, normals, ws, params, *,
     return (crop(out[0]), crop(out[1])) if with_geom else crop(out)
 
 
+@span("cost")
 def _batched_cost_vectors(inputs, ctx, params, normals, ws, *, exact_idx=(),
                           parity=None):
     """Cost vectors (C, S, H, Wg) of C candidate fields and, in geometric
@@ -364,9 +366,10 @@ def initialize_state(inputs: PatchMatchInputs, params: PatchMatchParams,
         if ctx is None:
             ctx = ref_tap_context(inputs.ref_image, cam, params, x0=x0,
                                   x1=x0 + W)
-        cost_vec = _masked(inputs, multiview_ncc(
-            inputs.src_images, inputs.src_cams, cam, normal, w, ctx, params),
-            params.cost_max)
+        with span("cost"):
+            cost_vec = _masked(inputs, multiview_ncc(
+                inputs.src_images, inputs.src_cams, cam, normal, w, ctx,
+                params), params.cost_max)
     cost, selected = topk_cost_and_selection(cost_vec, inputs.src_valid,
                                              params)
     return PlaneState(normal=normal, w=w, cost=cost, selected=selected,

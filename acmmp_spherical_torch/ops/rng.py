@@ -30,6 +30,7 @@ import torch
 
 from acmmp_spherical_torch.core import geometry as G
 from acmmp_spherical_torch.core.camera import Camera
+from acmmp_spherical_torch.utils.log import span
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -108,6 +109,7 @@ def _flat_index(shape, device, cols: Optional[Cols], axis: int):
             + t[None, None, :]).reshape(-1)
 
 
+@span("rng")
 def bits(k: Key, shape, device, cols: Optional[Cols] = None,
          axis: int = -1) -> torch.Tensor:
     """32 random bits per element (int64 in [0, 2**32)), equal to

@@ -223,7 +223,8 @@ def run_pass_batched(sp: ScenePaths, problems: Sequence[Problem],
     ``pass_runner.process_problem``, through the same round, prior and
     write helpers.  ``on_written(idx)`` is called once a problem's files
     are written.  ``timings`` gets the ``load`` (loader thread),
-    ``load_wait``, ``prior_build`` and ``write`` scopes."""
+    ``load_wait``, ``prior_build`` and ``write`` scopes, and is current in
+    each slot's thread for its rounds (their spans, ``utils/log.span``)."""
     mesh = make_view_mesh() if mesh is None else mesh
     timings = Timings() if timings is None else timings
     streams = slot_streams(mesh)
@@ -249,8 +250,9 @@ def run_pass_batched(sp: ScenePaths, problems: Sequence[Problem],
             seeds = load_seeds(sp, lp, ids[slot], geom=geom,
                                hierarchy=hierarchy,
                                multi_geometry=multi_geometry, device=dev)
-            return main_round(_adopt(lp.inputs, chunk.ready, dev), params,
-                              keys[slot], seeds)
+            with timings.current():
+                return main_round(_adopt(lp.inputs, chunk.ready, dev),
+                                  params, keys[slot], seeds)
 
         outs = run_slots(mesh, first, chunk.lps, streams)
 
@@ -264,8 +266,9 @@ def run_pass_batched(sp: ScenePaths, problems: Sequence[Problem],
                 out, prior = item
                 if prior is None:
                     return out
-                return (out[0], *prior_round(out[0], out[4], prior, params,
-                                             keys[slot]))
+                with timings.current():
+                    return (out[0], *prior_round(out[0], out[4], prior,
+                                                 params, keys[slot]))
 
             outs = run_slots(mesh, second, list(zip(outs, priors)), streams)
 

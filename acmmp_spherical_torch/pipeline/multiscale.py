@@ -201,7 +201,8 @@ def run_pipeline(root, cfg: PipelineConfig = PipelineConfig(), *,
     time per pass kind and scale (``photometric_s1``, ``geom0_s0``, ...;
     per problem, or per batched pass), per JBU pass, per fusion and the
     ``load``, ``prior_build`` and ``write`` scopes of the passes (and the
-    ``load_wait`` scope of batched ones)."""
+    ``load_wait`` scope of batched ones), and the spans inside the passes
+    (``process_problem`` and the batched slots make it current)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_pipeline: device cuda asked for, but CUDA is "

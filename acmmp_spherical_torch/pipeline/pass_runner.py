@@ -38,7 +38,7 @@ from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch
 from acmmp_spherical_torch.pipeline.prior import (
     build_planar_prior, draw_triangulation,
 )
-from acmmp_spherical_torch.utils.log import Timings, get_logger
+from acmmp_spherical_torch.utils.log import Timings, get_logger, span
 
 log = get_logger(__name__)
 
@@ -394,11 +394,14 @@ def problem_key(cfg: PipelineConfig, image_id: int,
 
 def main_round(inputs: PatchMatchInputs, params: PatchMatchParams, key,
                seeds: dict, shard_state=None):
-    """The pass's first round: (prepared inputs, depth, normal_world, cost,
-    state); ``shard_state`` as in ``run_patchmatch``."""
-    inputs = prepare_inputs(inputs, params)
-    return (inputs, *run_patchmatch(inputs, params, key,
-                                    shard_state=shard_state, **seeds))
+    """The pass's first round, the span ``main_round``: (prepared inputs,
+    depth, normal_world, cost, state); ``shard_state`` as in
+    ``run_patchmatch``."""
+    with span("main_round"):
+        with span("context"):
+            inputs = prepare_inputs(inputs, params)
+        return (inputs, *run_patchmatch(inputs, params, key,
+                                        shard_state=shard_state, **seeds))
 
 
 def prior_build(sp: ScenePaths, lp: LoadedProblem, image_id: int, depth,
@@ -406,13 +409,15 @@ def prior_build(sp: ScenePaths, lp: LoadedProblem, image_id: int, depth,
     """The Delaunay planar prior of the first round's fields, on the host
     (ACMMP.cpp:904-1011), with ``triangulation.png`` written: (normal, w,
     mask), or None when the prior is empty and the prior round is
-    skipped.  Timed as ``prior_build``."""
+    skipped.  Timed as ``prior_build``, with the copies of ``depth`` and
+    ``cost`` to the host (a wait for the device's queue) its ``fetch``."""
     with timings.scope("prior_build"):
+        with timings.scope("fetch"):
+            depth, cost = depth.cpu().numpy(), cost.cpu().numpy()
         dmin, dmax = lp.ref_cam.depth_range.numpy()
         prior_normal, prior_w, mask, tris = build_planar_prior(
-            lp.ref_cam, depth.cpu().numpy(), cost.cpu().numpy(),
-            cfg.depth_min_scale * dmin, cfg.depth_max_scale * dmax,
-            cfg.prior)
+            lp.ref_cam, depth, cost, cfg.depth_min_scale * dmin,
+            cfg.depth_max_scale * dmax, cfg.prior)
         write_image(sp.result_dir(image_id) / "triangulation.png",
                     draw_triangulation(lp.ref_image_np, tris))
     return (prior_normal, prior_w, mask) if mask.any() else None
@@ -422,25 +427,29 @@ def prior_round(inputs: PatchMatchInputs, state, prior,
                 params: PatchMatchParams, key, shard_state=None):
     """The second round with the planar prior (main.cpp:113-197), on the
     first round's prepared inputs and state, drawing from ``fold_in(key,
-    1)``: (depth, normal_world, cost, state); ``shard_state`` as in
-    ``run_patchmatch``."""
+    1)``, the span ``prior_round``: (depth, normal_world, cost, state);
+    ``shard_state`` as in ``run_patchmatch``."""
     t = lambda a: torch.from_numpy(a).to(inputs.ref_image.device)
-    prior_inputs = dataclasses.replace(
-        inputs, prior_normal=t(prior[0]), prior_w=t(prior[1]),
-        prior_mask=t(prior[2]))
-    return run_patchmatch(prior_inputs, params.with_planar_prior(),
-                          R.fold_in(key, 1), prev_state=state,
-                          shard_state=shard_state)
+    with span("prior_round"):
+        prior_inputs = dataclasses.replace(
+            inputs, prior_normal=t(prior[0]), prior_w=t(prior[1]),
+            prior_mask=t(prior[2]))
+        return run_patchmatch(prior_inputs, params.with_planar_prior(),
+                              R.fold_in(key, 1), prev_state=state,
+                              shard_state=shard_state)
 
 
 def write_results(sp: ScenePaths, image_id: int, depth, normal_world, cost,
                   *, geom: bool, timings: Timings) -> None:
     """Write the pass's depth, normal and cost ``.dmb`` files; timed as
-    ``write``."""
+    ``write``, with the copies to the host its ``fetch``."""
     with timings.scope("write"):
-        dmb.write_dmb(sp.depth_file(image_id, geom=geom), depth.cpu().numpy())
-        dmb.write_dmb(sp.normal_file(image_id), normal_world.cpu().numpy())
-        dmb.write_dmb(sp.cost_file(image_id), cost.cpu().numpy())
+        with timings.scope("fetch"):
+            fields = [a.cpu().numpy() for a in (depth, normal_world, cost)]
+        for path, a in zip((sp.depth_file(image_id, geom=geom),
+                            sp.normal_file(image_id), sp.cost_file(image_id)),
+                           fields):
+            dmb.write_dmb(path, a)
 
 
 def process_problem(sp: ScenePaths, problems: Sequence[Problem], idx: int,
@@ -452,42 +461,49 @@ def process_problem(sp: ScenePaths, problems: Sequence[Problem], idx: int,
     """Run one pass for one problem and write its results (ProcessProblem
     analog, main.cpp:73-210): ``main_round``, then, with the planar prior,
     ``prior_build`` and ``prior_round``, then ``write_results``.
-    ``timings`` gets the ``load``, ``prior_build`` and ``write`` scopes.
+    ``timings`` gets the ``load``, ``prior_build`` and ``write`` scopes,
+    and is current for the call, so that it gets the pass's spans too
+    (``utils/log.span``).
     ``tile_mesh``: both rounds cut the depth map into width tiles over the
     mesh's slots (``parallel/tile.py``), on the exact path: the windowed
     and rectified paths are turned off, as the JAX package does."""
     device = torch.device(device)
     timings = Timings() if timings is None else timings
-    image_id = problems[idx].ref_image_id
-    sp.result_dir(image_id).mkdir(parents=True, exist_ok=True)
+    with timings.current():
+        image_id = problems[idx].ref_image_id
+        sp.result_dir(image_id).mkdir(parents=True, exist_ok=True)
 
-    with timings.scope("load"):
-        lp, params = load_problem(sp, problems, idx, cfg, geom=geom,
-                                  multi_geometry=multi_geometry,
-                                  device=device)
-        if hierarchy:
-            params = params.with_hierarchy()
-        seeds = load_seeds(sp, lp, image_id, geom=geom, hierarchy=hierarchy,
-                           multi_geometry=multi_geometry, device=device)
-    shard_state = None
-    if tile_mesh is not None:
-        from acmmp_spherical_torch.parallel.tile import make_state_sharder
+        with timings.scope("load"):
+            lp, params = load_problem(sp, problems, idx, cfg, geom=geom,
+                                      multi_geometry=multi_geometry,
+                                      device=device)
+            if hierarchy:
+                params = params.with_hierarchy()
+            seeds = load_seeds(sp, lp, image_id, geom=geom,
+                               hierarchy=hierarchy,
+                               multi_geometry=multi_geometry, device=device)
+        shard_state = None
+        if tile_mesh is not None:
+            from acmmp_spherical_torch.parallel.tile import (
+                make_state_sharder,
+            )
 
-        params = dataclasses.replace(params, fast_ncc=False, rect_ncc=False,
-                                     rect_comp_hw=None, rect_live_n=None,
-                                     rect_init=False, rect_warp_hw=None)
-        shard_state = make_state_sharder(tile_mesh)
-    key = problem_key(cfg, image_id, seed)
-    log.info("pass image=%08d size=%dx%d geom=%s prior=%s hier=%s multi=%s "
-             "path=%s", image_id, lp.width, lp.height, geom, planar_prior,
-             hierarchy, multi_geometry, "rect" if params.rect_ncc
-             else "window" if params.fast_ncc else "exact")
-    inputs, depth, normal_world, cost, state = main_round(
-        lp.inputs, params, key, seeds, shard_state)
-    if planar_prior:
-        prior = prior_build(sp, lp, image_id, depth, cost, cfg, timings)
-        if prior is not None:
-            depth, normal_world, cost, state = prior_round(
-                inputs, state, prior, params, key, shard_state)
-    write_results(sp, image_id, depth, normal_world, cost, geom=geom,
-                  timings=timings)
+            params = dataclasses.replace(
+                params, fast_ncc=False, rect_ncc=False, rect_comp_hw=None,
+                rect_live_n=None, rect_init=False, rect_warp_hw=None)
+            shard_state = make_state_sharder(tile_mesh)
+        key = problem_key(cfg, image_id, seed)
+        log.info("pass image=%08d size=%dx%d geom=%s prior=%s hier=%s "
+                 "multi=%s path=%s", image_id, lp.width, lp.height, geom,
+                 planar_prior, hierarchy, multi_geometry,
+                 "rect" if params.rect_ncc
+                 else "window" if params.fast_ncc else "exact")
+        inputs, depth, normal_world, cost, state = main_round(
+            lp.inputs, params, key, seeds, shard_state)
+        if planar_prior:
+            prior = prior_build(sp, lp, image_id, depth, cost, cfg, timings)
+            if prior is not None:
+                depth, normal_world, cost, state = prior_round(
+                    inputs, state, prior, params, key, shard_state)
+        write_results(sp, image_id, depth, normal_world, cost, geom=geom,
+                      timings=timings)

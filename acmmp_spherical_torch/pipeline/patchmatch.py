@@ -26,6 +26,7 @@ from acmmp_spherical_torch.ops.propagate import (
     PatchMatchInputs, needs_tap_context, checkerboard_halfstep,
     extract_depth_and_normal, initialize_state, prepare_inputs,
 )
+from acmmp_spherical_torch.utils.log import span
 
 
 def run_patchmatch(inputs: PatchMatchInputs, params: PatchMatchParams, key,
@@ -44,27 +45,37 @@ def run_patchmatch(inputs: PatchMatchInputs, params: PatchMatchParams, key,
     ``shard_state``: the tile-parallel hook (``parallel/tile.py``;
     ``shard_state(inputs, params)`` gives the pass's tiled ``initialize``,
     ``halfstep`` and ``extract``), exact path only; its outputs are on the
-    mesh's lead slot.
+    mesh's lead slot.  The stages are the spans ``context``, ``init``,
+    ``halfstep`` (each half-step) and ``extract`` (``utils/log.span``).
     Returns (depth (H, W), normal_world (H, W, 3), cost (H, W), state)."""
     if isinstance(key, int):
         key = R.key(key)
-    inputs = prepare_inputs(inputs, params)
-    if shard_state is not None:
-        tiled = shard_state(inputs, params)
-        init, halfstep, extract = (tiled.initialize, tiled.halfstep,
-                                   tiled.extract)
-    else:
-        ctx = None
-        if needs_tap_context(inputs, params):
-            ctx = ref_tap_context(inputs.ref_image, inputs.ref_cam, params)
-        init = lambda k, **kw: initialize_state(inputs, params, k, ctx=ctx,
-                                                **kw)
-        halfstep = lambda st, p, k, it, parity: checkerboard_halfstep(
-            st, inputs, p, k, it, parity, ctx=ctx)
-        extract = lambda st: extract_depth_and_normal(st, inputs.ref_cam)
+    with span("context"):
+        inputs = prepare_inputs(inputs, params)
+        if shard_state is not None:
+            tiled = shard_state(inputs, params)
+            init, halfstep, extract = (tiled.initialize, tiled.halfstep,
+                                       tiled.extract)
+        else:
+            ctx = None
+            if needs_tap_context(inputs, params):
+                ctx = ref_tap_context(inputs.ref_image, inputs.ref_cam,
+                                      params)
+            init = lambda k, **kw: initialize_state(inputs, params, k,
+                                                    ctx=ctx, **kw)
+            halfstep = lambda st, p, k, it, parity: checkerboard_halfstep(
+                st, inputs, p, k, it, parity, ctx=ctx)
+            extract = lambda st: extract_depth_and_normal(st, inputs.ref_cam)
+
+    def step(state, p, k, it, parity):
+        with span("halfstep"):
+            return halfstep(state, p, k, it, parity)
+
     k_init, k_iters = R.split(key)
-    state = init(k_init, prev_state=prev_state,
-                 seed_normal_world=seed_normal_world, seed_depth=seed_depth)
+    with span("init"):
+        state = init(k_init, prev_state=prev_state,
+                     seed_normal_world=seed_normal_world,
+                     seed_depth=seed_depth)
     first_iter = 0
     fresh_random = not (params.geom_consistency or params.hierarchy
                         or params.planar_prior)
@@ -75,14 +86,15 @@ def run_patchmatch(inputs: PatchMatchInputs, params: PatchMatchParams, key,
         params0 = dataclasses.replace(params, fast_ncc=False)
         k0, k1 = R.split(R.fold_in(k_iters, 0))
         for parity, k in ((0, k0), (1, k1)):
-            state = halfstep(state, params0, k, 0, parity)
+            state = step(state, params0, k, 0, parity)
         first_iter = 1
     for i in range(first_iter, params.max_iterations):
         k0, k1 = R.split(R.fold_in(k_iters, i))
-        state = halfstep(state, params, k0, i, 0)
-        state = halfstep(state, params, k1, i, 1)
-    depth, normal_world = extract(state)
-    depth = checkerboard_median_filter(
-        depth, state.cost, min_cost=params.filter_min_cost,
-        wrap_x=inputs.ref_cam.model == SPHERE)
+        state = step(state, params, k0, i, 0)
+        state = step(state, params, k1, i, 1)
+    with span("extract"):
+        depth, normal_world = extract(state)
+        depth = checkerboard_median_filter(
+            depth, state.cost, min_cost=params.filter_min_cost,
+            wrap_x=inputs.ref_cam.model == SPHERE)
     return depth, normal_world, state.cost, state

@@ -14,16 +14,20 @@ the geometric pass seeded from the windowed photometric one); with
 ranked at the coarse tap pattern; it acts on the rectified paths only).
 For each it prints:
 
-* stage times -- host clock around each stage of ``run_patchmatch``, each
-  ended by ``torch.cuda.synchronize()``, mean of 3 passes after a warm one:
-  context build, reference tap context (off the rectified path), init,
-  every half-step, extraction + median filter;
-* the unprofiled pass time (host clock, mean of 3 more passes);
+* the pass time (host clock, mean of 3 passes after a warm one) and, from
+  the same passes, the host time in each of the program's spans
+  (``stages_ms``: ``context``, ``init``, ``halfstep``, ``cost``, ``rng``,
+  ``extract``; a span's time includes its children's, and the host runs
+  ahead of the device, so a span's host time is its launch time unless it
+  waits);
 * under ``torch.profiler`` over one more pass: the device time of all
   kernels, the idle share (1 - device time / unprofiled pass time: two
-  different runs, so approximate), the number of device kernels, and the
+  different runs, so approximate), the number of device kernels, the
   device time and count of each hand-written kernel and of the 8 largest
-  other kernels.
+  other kernels, and the device time and activity count by the innermost
+  span open at each activity's launch (``stages_device_ms``,
+  ``stages_activities``; ``attributed``: the share of device time put down
+  to a span).
 
 Both pass kinds are timed before either is traced, so the profiler's set-up
 cannot slow the timed passes.
@@ -44,82 +48,47 @@ from acmmp_spherical_torch.bench import (
     BENCH_SCENE, SPHERE_BENCH_SCENE, make_problem, make_sphere_problem,
     source_depths,
 )
-from acmmp_spherical_torch.ops import rng as R
-from acmmp_spherical_torch.ops.filter import checkerboard_median_filter
-from acmmp_spherical_torch.ops.ncc import ref_tap_context
-from acmmp_spherical_torch.ops.propagate import (
-    checkerboard_halfstep, extract_depth_and_normal, initialize_state,
-    needs_tap_context, prepare_inputs,
-)
 from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch
+from acmmp_spherical_torch.utils.log import Timings
+from acmmp_spherical_torch.utils.profiling import (
+    SpanClock, by_span, device_activity,
+)
 
 KERNELS = ("rect_ncc_kernel", "warp_transport_kernel", "warp_src_kernel",
            "warp_disp_kernel", "ncc_window_kernel")
 
 
-def staged_pass(inputs, params, key, seeds):
-    """``run_patchmatch`` stage by stage (without ``exact_first_iteration``,
-    which the bench parameters leave off); returns {stage: seconds}."""
-    times = {}
-
-    def stage(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times[name] = times.get(name, 0.0) + time.perf_counter() - t0
-        return out
-
-    key = R.key(key)
-    prep = stage("build_rect_context", lambda: prepare_inputs(inputs, params))
-    ctx = None
-    if needs_tap_context(prep, params):
-        ctx = stage("ref_tap_context", lambda: ref_tap_context(
-            prep.ref_image, prep.ref_cam, params))
-    k_init, k_iters = R.split(key)
-    state = stage("initialize_state", lambda: initialize_state(
-        prep, params, k_init, ctx=ctx, **seeds))
-    for i in range(params.max_iterations):
-        k0, k1 = R.split(R.fold_in(k_iters, i))
-        for parity, k in ((0, k0), (1, k1)):
-            state = stage("half-steps", lambda: checkerboard_halfstep(
-                state, prep, params, k, i, parity, ctx=ctx))
-
-    def finish():
-        depth, _ = extract_depth_and_normal(state, prep.ref_cam)
-        return checkerboard_median_filter(depth, state.cost,
-                                          min_cost=params.filter_min_cost)
-
-    stage("extraction + median filter", finish)
-    return times
-
-
 def timing(kind, inputs, params, seeds, reps=3):
-    """Stage times and unprofiled pass times of one pass kind."""
-    run = lambda k: run_patchmatch(inputs, params, k, **seeds)
-    run(0)
+    """Pass times and the host time of each span of one pass kind: a warm
+    pass, then ``reps`` passes under a current ``Timings``."""
+    run_patchmatch(inputs, params, 0, **seeds)
     torch.cuda.synchronize()
-    stages = [staged_pass(inputs, params, r + 1, seeds) for r in range(reps)]
-    walls = []
+    walls, spans = [], []
     for r in range(reps):
+        timings = Timings()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run(r + 1)
+        with timings.current():
+            run_patchmatch(inputs, params, r + 1, **seeds)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        spans.append(timings.totals)
     return dict(
         pass_kind=kind, card=torch.cuda.get_device_name(0),
-        stages_ms={k: 1e3 * sum(s[k] for s in stages) / reps
-                   for k in stages[0]},
+        stages_ms={k: 1e3 * sum(s.get(k, 0.0) for s in spans) / reps
+                   for k in spans[0]},
         pass_ms=1e3 * sum(walls) / reps, pass_s=walls)
 
 
 def trace(result, inputs, params, seeds):
     """Add the device time of one traced pass to ``timing``'s result (the
-    device activity alone is recorded)."""
+    device activity alone is recorded), in all, by kernel and by the span
+    that launched it."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
+    clock = SpanClock()
     with torch.profiler.profile(activities=acts) as prof:
-        run_patchmatch(inputs, params, 4, **seeds)
+        with Timings(hook=clock).current():
+            run_patchmatch(inputs, params, 4, **seeds)
         torch.cuda.synchronize()
     device = {}
     for ev in prof.key_averages():
@@ -132,11 +101,14 @@ def trace(result, inputs, params, seeds):
             for k in KERNELS}
     others = sorted(((ms, n, c) for n, (ms, c) in device.items()
                      if not any(k in n for k in KERNELS)), reverse=True)[:8]
+    spans = by_span(*device_activity(prof), clock.spans)
     result.update(
         device_ms=total_ms, idle_share=1.0 - total_ms / result["pass_ms"],
         device_kernels=sum(c for _, c in device.values()),
         kernels_ms_count=mine,
-        top_other_ms_count=[[n[:80], ms, c] for ms, n, c in others])
+        top_other_ms_count=[[n[:80], ms, c] for ms, n, c in others],
+        stages_device_ms={k: 1e3 * v for k, v in spans["device_s"].items()},
+        stages_activities=spans["count"], attributed=spans["attributed"])
 
 
 def main() -> None:

@@ -1,6 +1,11 @@
 """Structured logging and wall-clock scopes (counterpart of
 acmmp_spherical_tpu/utils/log.py): every pass logs through the standard
-logging module, with per-scope timings the pipeline reports at its end."""
+logging module, with per-scope timings the pipeline reports at its end.
+
+The pass runner, and each slot thread of the batched one, make their
+``Timings`` current for the calling thread (``Timings.current``); code
+below them opens its scopes with :func:`span`, which does nothing where
+no ``Timings`` is current."""
 
 from __future__ import annotations
 
@@ -10,6 +15,7 @@ import threading
 import time
 
 _FORMAT = "%(asctime)s %(levelname).1s %(name)s: %(message)s"
+_CURRENT = threading.local()
 
 
 def get_logger(name: str) -> logging.Logger:
@@ -51,7 +57,31 @@ class Timings:
             if self.hook is not None:
                 self.hook(name, False)
 
+    @contextlib.contextmanager
+    def current(self):
+        """Make this ``Timings`` the calling thread's current one for the
+        ``with`` block (the one it replaces is current again after it)."""
+        prev = getattr(_CURRENT, "timings", None)
+        _CURRENT.timings = self
+        try:
+            yield self
+        finally:
+            _CURRENT.timings = prev
+
     def summary(self) -> str:
         return ", ".join(
             f"{k}={v:.3f}s/{self.counts[k]}"
             for k, v in sorted(self.totals.items()))
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """``scope(name)`` of the calling thread's current ``Timings``; nothing
+    where none is current.  A span never opens inside a span of the same
+    name (a hook may key its open scopes by name)."""
+    timings = getattr(_CURRENT, "timings", None)
+    if timings is None:
+        yield
+        return
+    with timings.scope(name):
+        yield
