@@ -26,6 +26,18 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
+from time_limit import pytest_runtest_protocol  # noqa: E402,F401
+
+try:
+    import torch
+except ImportError:
+    pass
+else:
+    # The port's tests run torch on 2 threads.  One call here sets it for
+    # every test module: an xdist worker imports every module at collection,
+    # so a call per module would only repeat it.
+    torch.set_num_threads(2)
+
 
 @pytest.fixture
 def rng():

@@ -13,7 +13,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
 
 from acmmp_spherical_torch.io import read_ply  # noqa: E402
 from acmmp_spherical_torch.pipeline import multiscale  # noqa: E402

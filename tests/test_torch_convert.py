@@ -14,7 +14,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
 
 from acmmp_spherical_torch.core.camera import PINHOLE, SPHERE  # noqa: E402
 from acmmp_spherical_torch.io.scene import (  # noqa: E402

@@ -15,13 +15,19 @@ On the golden problem (96x64x3src), both bf16 packs off:
     >= 99.9% of pixels and within 1e-4 where both hold;
 (c) ``rect_batched_ncc(with_geom=True)``, C=9 on parity 0, end to end
     against the reference's, with the tolerances of (b).
+
+The reference's side of (c) is stored in
+tests/fixtures/ref_geom_batched_ncc.npz.  Regenerate it (CPU, interpret
+mode, about 2 minutes):
+    JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_geom_kernels.py --regen
 """
+
+import sys
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -40,12 +46,12 @@ from acmmp_spherical_torch.ops.kernels import ncc_rect as TNR  # noqa: E402
 from acmmp_spherical_torch.ops.kernels import warp_image as TWI  # noqa: E402
 
 from torch_port_util import (  # noqa: E402
-    H, W, golden_scene, np_tree, port_params, rect_params,
+    H, W, golden_scene, np_tree, port_params, rect_dict, rect_params,
+    reference_arrays, regen_references,
 )
 
 
-@pytest.fixture(scope="module")
-def setup():
+def _setup():
     cams, tcams, images, depths, normals = golden_scene()
     p = rect_params(cams).with_geom(False)
     src_depths, _, _ = golden_geom_fields(depths, normals)
@@ -60,11 +66,13 @@ def setup():
     return cams, p, ctx, src_depths, (n_cam, w)
 
 
+@pytest.fixture(scope="module")
+def setup():
+    return _setup()
+
+
 def _tctx(ctx):
-    d = np_tree(ctx)
-    d["maps"] = [{k: m[k] for k in ("fwd_idx", "fwd_valid", "bwd_cidx", "bwd_x",
-                                    "bwd_y", "bwd_valid")} for m in d["maps"]]
-    return interop.rect_context(d, device="cpu")
+    return interop.rect_context(rect_dict(ctx), device="cpu")
 
 
 def _assert_disp_match(t, j):
@@ -140,20 +148,41 @@ def test_rect_ncc_geom_plain_matches_pallas(setup):
     _assert_geom_match(tc, tg, np.asarray(jc), np.asarray(jg), p)
 
 
-def test_rect_batched_ncc_with_geom_matches_reference(setup):
-    """(c) C=9 near-GT planes on parity 0 through the whole batched
-    evaluation of both packages."""
-    cams, p, ctx, _, (n_cam, w) = setup
+def _near_gt_planes(n_cam, w):
+    """C=9 near-GT planes, packed for parity 0."""
     k = jnp.arange(9, dtype=jnp.float32)[:, None, None]
     normals = jnp.broadcast_to(n_cam, (9,) + n_cam.shape)
     ws = w[None] * (1.0 + 0.005 * (k - 4.0))
-    n = jnp.moveaxis(checkerboard_pack(jnp.moveaxis(normals, -1, 1), 0), 1, -1)
-    wp = checkerboard_pack(ws, 0)
-    jc, jg = JNR.rect_batched_ncc(ctx, n, wp, p, interpret=True,
-                                  with_geom=True, parity=0)
+    return (jnp.moveaxis(checkerboard_pack(jnp.moveaxis(normals, -1, 1), 0),
+                         1, -1), checkerboard_pack(ws, 0))
+
+
+def build_batched_reference():
+    """The reference's side of (c): its batched evaluation's costs and
+    geometric costs (interpret mode)."""
+    _, p, ctx, _, planes = _setup()
+    jc, jg = JNR.rect_batched_ncc(ctx, *_near_gt_planes(*planes), p,
+                                  interpret=True, with_geom=True, parity=0)
+    return dict(cost=np.asarray(jc), geom=np.asarray(jg))
+
+
+REFERENCES = {"ref_geom_batched_ncc": build_batched_reference}
+
+
+def test_rect_batched_ncc_with_geom_matches_reference(setup):
+    """(c) C=9 near-GT planes on parity 0 through the whole batched
+    evaluation of both packages (the reference's stored)."""
+    cams, p, ctx, _, planes = setup
+    n, wp = _near_gt_planes(*planes)
+    ref = reference_arrays("ref_geom_batched_ncc", build_batched_reference)
+    jc, jg = ref["cost"], ref["geom"]
     tc, tg = TNR.rect_batched_ncc(_tctx(ctx), torch.tensor(np.asarray(n)),
                                   torch.tensor(np.asarray(wp)), port_params(p),
                                   parity=0, with_geom=True)
     assert tc.shape == jc.shape == tg.shape
-    _assert_geom_match(tc.numpy(), tg.numpy(), np.asarray(jc), np.asarray(jg),
-                       p)
+    _assert_geom_match(tc.numpy(), tg.numpy(), jc, jg, p)
+
+
+if __name__ == "__main__":
+    if "--regen" in sys.argv:
+        regen_references(REFERENCES)

@@ -19,8 +19,13 @@ depth GT x (1 + 0.01 sin i), GT world normals):
     test_rect_ncc.py::test_rect_geom_pass_quality): median relative depth
     error < 0.01.
 
-Regenerate the fixture from the reference (CPU, interpret mode):
-    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_geom_pass.py --regen
+The reference's side of (d) and (e) is stored in
+tests/fixtures/ref_geom_init.npz (``build_init_reference``), on the
+geometric rectified context of ref_golden_context.npz.
+
+Regenerate both fixtures from the reference (CPU, interpret mode, about 5
+minutes):
+    JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_geom_pass.py --regen
 """
 
 import dataclasses
@@ -32,7 +37,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -48,7 +52,9 @@ from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch  # noqa: E4
 
 from test_regression_fixture import _stats, check_against_fixture  # noqa: E402
 from torch_port_util import (  # noqa: E402
-    H, N_VIEWS, golden_scene, jax_cam_dict, np_tree, port_params, rect_params,
+    H, N_VIEWS, check_golden_context, golden_context, golden_scene,
+    input_dict, np_tree, port_params, rect_params, reference_arrays,
+    regen_references, stored_port_inputs,
 )
 
 FIXTURE_GEOM = (pathlib.Path(__file__).parent / "fixtures"
@@ -99,66 +105,72 @@ def reference_geom_pass():
     return np.asarray(d), np.asarray(n), np.asarray(c)
 
 
-@pytest.fixture(scope="module")
-def reference_init(scene):
-    """The reference's prepared geom inputs, seeded init and the same
-    inputs and state handed to the port."""
+def build_init_reference():
+    """The reference's side of (d) and (e): its prepared inputs, seeded init
+    state and one geometric half-step's ``w`` and costs, on the stored
+    golden geometric rectified context."""
     from acmmp_spherical_tpu.ops import propagate as JP
     from acmmp_spherical_tpu.ops.ncc import ref_tap_context
 
-    cams, _, images, depths, normals = scene
+    cams, _, images, depths, normals = golden_scene()
     params = _params(cams)
     src, seed_d, seed_n = golden_geom_fields(depths, normals)
     jin = JP.prepare_inputs(_jax_inputs(cams, images, src), params)
+    check_golden_context(rect_geom=jin.rect)
     ctx = ref_tap_context(jin.ref_image, jin.ref_cam, params)
-    k_init, _ = jax.random.split(jax.random.key(GOLDEN_KEY))
+    k_init, k_iters = jax.random.split(jax.random.key(GOLDEN_KEY))
     state = JP.initialize_state(jin, params, k_init, ctx=ctx,
                                 seed_normal_world=jnp.asarray(seed_n),
                                 seed_depth=jnp.asarray(seed_d))
-    rect = np_tree(jin.rect)
-    rect["maps"] = [{k: m[k] for k in ("fwd_idx", "fwd_valid", "bwd_cidx",
-                                       "bwd_x", "bwd_y", "bwd_valid")}
-                    for m in rect["maps"]]
-    tin = interop.patchmatch_inputs(dict(
-        ref_image=images[0], src_images=images[1:],
-        ref_cam=jax_cam_dict(cams[0]), src_cams=jax_cam_dict(jin.src_cams),
-        src_valid=np.asarray(jin.src_valid),
-        depth_range=np.asarray(jin.depth_range), src_depths=src, rect=rect),
-        device="cpu")
+    k0, _ = jax.random.split(jax.random.fold_in(k_iters, 0))
+    out = JP.checkerboard_halfstep(state, jin, ctx, params, k0, 0, 0)
+    return dict(inputs=input_dict(jin), state=np_tree(state),
+                halfstep_w=np.asarray(out.w),
+                halfstep_cost=np.asarray(out.cost))
+
+
+REFERENCES = {"ref_geom_init": build_init_reference}
+
+
+@pytest.fixture(scope="module")
+def reference_init(scene):
+    """The reference's params and stored side of (d) and (e), and the port's
+    inputs on the same context."""
+    cams, _, images, depths, normals = scene
+    src, seed_d, seed_n = golden_geom_fields(depths, normals)
+    ref = reference_arrays("ref_geom_init", build_init_reference)
+    tin = stored_port_inputs(ref["inputs"], images,
+                             golden_context()["rect_geom"], src)
     seeds = dict(seed_normal_world=torch.from_numpy(seed_n),
                  seed_depth=torch.from_numpy(seed_d))
-    return params, jin, ctx, state, tin, seeds
+    return _params(cams), ref, tin, seeds
 
 
 def test_seeded_init_matches_reference(reference_init):
     """(d)"""
-    params, _, _, state, tin, seeds = reference_init
+    params, ref, tin, seeds = reference_init
+    state = ref["state"]
     k_init, _ = TR.split(TR.key(GOLDEN_KEY))
     ts = TP.initialize_state(tin, port_params(params), k_init, **seeds)
     for f in ("normal", "w"):
-        j, t = np.asarray(getattr(state, f)), getattr(ts, f).numpy()
+        j, t = state[f], getattr(ts, f).numpy()
         np.testing.assert_allclose(t, j, rtol=1e-6, atol=1e-6, err_msg=f)
-    dc = np.abs(np.asarray(state.cost) - ts.cost.numpy())
+    dc = np.abs(state["cost"] - ts.cost.numpy())
     assert np.mean(dc <= 1e-4) >= 0.995, np.mean(dc <= 1e-4)
-    assert (np.asarray(state.selected) == ts.selected.numpy()).mean() >= 0.995
+    assert (state["selected"] == ts.selected.numpy()).mean() >= 0.995
 
 
 def test_geom_halfstep_from_identical_state(reference_init):
     """(e)"""
-    from acmmp_spherical_tpu.ops import propagate as JP
-
-    params, jin, ctx, state, tin, _ = reference_init
-    _, k_iters = jax.random.split(jax.random.key(GOLDEN_KEY))
-    k0, _ = jax.random.split(jax.random.fold_in(k_iters, 0))
-    out = JP.checkerboard_halfstep(state, jin, ctx, params, k0, 0, 0)
-    tstate = interop.plane_state(np_tree(state), device="cpu")
+    params, ref, tin, _ = reference_init
+    tstate = interop.plane_state(ref["state"], device="cpu")
     tk0, _ = TR.split(TR.fold_in(TR.split(TR.key(GOLDEN_KEY))[1], 0))
     tout = TP.checkerboard_halfstep(tstate, tin, port_params(params), tk0, 0, 0)
-    j_acc = np.asarray(out.w) != np.asarray(state.w)
+    j_acc = ref["halfstep_w"] != ref["state"]["w"]
     t_acc = tout.w.numpy() != tstate.w.numpy()
     assert (j_acc == t_acc).mean() >= 0.995, (j_acc == t_acc).mean()
     assert j_acc.mean() > 0.05
-    dc = np.abs(np.asarray(out.cost) - tout.cost.numpy())
+    dc = np.abs(ref["halfstep_cost"] - tout.cost.numpy())
     assert np.mean(dc <= 1e-4) >= 0.995, np.mean(dc <= 1e-4)
 
 
@@ -192,10 +204,7 @@ def test_geom_pass_quality_near_gt_seeds(scene):
 
 if __name__ == "__main__":
     if "--regen" in sys.argv:
-        import os
-
-        os.environ.setdefault("JAX_PLATFORMS", "cpu")
-        jax.config.update("jax_platforms", "cpu")
+        regen_references(REFERENCES)
         FIXTURE_GEOM.write_text(json.dumps(_stats(*reference_geom_pass()),
                                            indent=1))
         print(f"wrote {FIXTURE_GEOM}")

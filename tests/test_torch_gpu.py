@@ -38,6 +38,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# On the GPU host this file runs with --noconftest, so it sets the plain
+# versions' thread count itself (tests/conftest.py sets it everywhere else).
 torch.set_num_threads(2)
 
 from acmmp_spherical_torch.bench import (  # noqa: E402

@@ -136,7 +136,9 @@ SCRIPT = textwrap.dedent("""
 
 
 def test_port_imports_no_jax_or_cv2():
+    # The child took 167-286 s in the 6-worker suite on a loaded CPU, and
+    # once reached the 300 s it had here before: 600 s is twice the slowest.
     res = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,
-                         text=True, timeout=300, cwd=REPO)
+                         text=True, timeout=600, cwd=REPO)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.count("FORBIDDEN []") == 2

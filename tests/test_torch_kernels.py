@@ -20,7 +20,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -39,7 +38,7 @@ from acmmp_spherical_torch.ops.kernels import ncc_rect as TNR  # noqa: E402
 from acmmp_spherical_torch.ops.kernels import warp_image as TWI  # noqa: E402
 
 from torch_port_util import (  # noqa: E402
-    H, W, golden_scene, np_tree, port_params, rect_params,
+    H, W, golden_scene, port_params, rect_dict, rect_params,
 )
 
 S2 = 2
@@ -63,10 +62,7 @@ def setup():
 
 
 def _tctx(ctx):
-    d = np_tree(ctx)
-    d["maps"] = [{k: m[k] for k in ("fwd_idx", "fwd_valid", "bwd_cidx", "bwd_x",
-                                    "bwd_y", "bwd_valid")} for m in d["maps"]]
-    return interop.rect_context(d, device="cpu")
+    return interop.rect_context(rect_dict(ctx), device="cpu")
 
 
 def _packed(planes, parity):

@@ -14,16 +14,22 @@
     21-tap filter spreads each differing pixel to its neighbours' medians).
     Marked slow: the reference pass compiles for about three minutes on a
     CPU.
+
+The reference's side of (b) is stored in tests/fixtures/ref_rect_halfstep.npz
+(``build_halfstep_reference``), on the rectified context of
+ref_golden_context.npz.  Regenerate it (CPU, interpret mode, about 3
+minutes):
+    JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_pass.py --regen
 """
 
 import dataclasses
 import json
+import sys
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -37,7 +43,9 @@ from test_regression_fixture import (  # noqa: E402
     FIXTURE_WARP, _stats, check_against_fixture,
 )
 from torch_port_util import (  # noqa: E402
-    H, N_VIEWS, golden_scene, jax_cam_dict, np_tree, port_params, rect_params,
+    H, N_VIEWS, check_golden_context, golden_context, golden_scene,
+    input_dict, jax_cam_dict, np_tree, port_params, rect_params,
+    reference_arrays, regen_references, stored_port_inputs,
 )
 
 KEY = 2333
@@ -80,41 +88,48 @@ def test_full_pass_matches_reference_fixture(scene):
     assert np.median(rel[8:-8, 8:-8]) < 0.01
 
 
-def test_halfstep_from_identical_state(scene):
+def build_halfstep_reference():
+    """The reference's side of (b): its inputs, init state (key 2333) and
+    one half-step's ``w`` and costs, on the stored golden rectified
+    context."""
     from acmmp_spherical_tpu.ops import propagate as JP
     from acmmp_spherical_tpu.ops.ncc import ref_tap_context
 
-    cams, tcams, images, _, _ = scene
+    cams, _, images, _, _ = golden_scene()
     params = rect_params(cams)
     jin = JP.prepare_inputs(_jax_inputs(cams, images), params)
+    check_golden_context(rect=jin.rect)
     ctx = ref_tap_context(jin.ref_image, jin.ref_cam, params)
     k_init, k_iters = jax.random.split(jax.random.key(KEY))
     state = JP.initialize_state(jin, params, k_init, ctx=ctx)
     k0, _ = jax.random.split(jax.random.fold_in(k_iters, 0))
     out = JP.checkerboard_halfstep(state, jin, ctx, params, k0, 0, 0)
+    return dict(inputs=input_dict(jin), state=np_tree(state),
+                halfstep_w=np.asarray(out.w),
+                halfstep_cost=np.asarray(out.cost))
 
-    rect = np_tree(jin.rect)
-    rect["maps"] = [{k: m[k] for k in ("fwd_idx", "fwd_valid", "bwd_cidx",
-                                       "bwd_x", "bwd_y", "bwd_valid")}
-                    for m in rect["maps"]]
-    tin = interop.patchmatch_inputs(dict(
-        ref_image=images[0], src_images=images[1:],
-        ref_cam=jax_cam_dict(cams[0]),
-        src_cams=jax_cam_dict(jin.src_cams), src_valid=np.asarray(jin.src_valid),
-        depth_range=np.asarray(jin.depth_range), rect=rect), device="cpu")
-    tstate = interop.plane_state(np_tree(state), device="cpu")
+
+REFERENCES = {"ref_rect_halfstep": build_halfstep_reference}
+
+
+def test_halfstep_from_identical_state(scene):
+    cams, tcams, images, _, _ = scene
+    params = rect_params(cams)
+    ref = reference_arrays("ref_rect_halfstep", build_halfstep_reference)
+    tin = stored_port_inputs(ref["inputs"], images, golden_context()["rect"])
+    tstate = interop.plane_state(ref["state"], device="cpu")
     from acmmp_spherical_torch.ops import rng as TR
 
     tk0, _ = TR.split(TR.fold_in(TR.split(TR.key(KEY))[1], 0))
     tout = TP.checkerboard_halfstep(tstate, tin, port_params(params), tk0,
                                     0, 0)
 
-    jw, tw = np.asarray(out.w), tout.w.numpy()
-    j_acc = jw != np.asarray(state.w)
+    jw, tw = ref["halfstep_w"], tout.w.numpy()
+    j_acc = jw != ref["state"]["w"]
     t_acc = tw != tstate.w.numpy()
     assert (j_acc == t_acc).mean() >= 0.995, (j_acc == t_acc).mean()
     assert j_acc.mean() > 0.1
-    dc = np.abs(np.asarray(out.cost) - tout.cost.numpy())
+    dc = np.abs(ref["halfstep_cost"] - tout.cost.numpy())
     assert np.mean(dc <= 1e-4) >= 0.995, np.mean(dc <= 1e-4)
 
 
@@ -202,3 +217,8 @@ def test_unrectifiable_problem_runs_off_the_rect_path():
         d, _, c, _ = run_patchmatch(inputs, params, KEY)
         assert d.shape == (H, 96) and bool(torch.isfinite(d).all())
         assert bool(torch.isfinite(c).all())
+
+
+if __name__ == "__main__":
+    if "--regen" in sys.argv:
+        regen_references(REFERENCES)

@@ -27,7 +27,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
 
 from acmmp_spherical_torch.config import PipelineConfig  # noqa: E402
 from acmmp_spherical_torch.io import read_depth_dmb, read_ply  # noqa: E402

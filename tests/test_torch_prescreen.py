@@ -6,8 +6,9 @@ packs on, with prescreen on; the Pallas kernels run in interpret mode.
 
 Cases (1)-(3) share one context, the JAX package's, built once with the
 geometric pass's source depths (``bench.golden_geom_fields``) and handed
-to the port; the half-steps start from the port's init state, handed to
-the JAX package.
+to the port; the photometric half-steps start from the port's init state,
+handed to the JAX package, and the geometric ones from the JAX package's
+own seeded init state, handed to the port.
 
 (1) one photometric half-step of each package from the same state, inputs
     and key (a C=8 coarse and a C=2 full evaluation in the propagation, C=5
@@ -38,17 +39,22 @@ the JAX package.
     runtime-bounds build.
 
 Case (1) is marked slow: its reference half-step compiles four
-interpreted kernel calls (about 90 s on a CPU); case (2) compiles three.
+interpreted kernel calls (about 90 s on a CPU).  The JAX package's side of
+case (2) and of (3)'s fast case (the seeded init state (2) starts from
+included) is stored in tests/fixtures/ref_prescreen.npz, on the geometric
+rectified context of ref_golden_context.npz.  Regenerate it (CPU,
+interpret mode, about 3 minutes):
+    JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_prescreen.py --regen
 """
 
 import dataclasses
 import json
+import types
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -64,8 +70,9 @@ from test_torch_tap_pack import (  # noqa: E402
     _assert_kernel_match, _bf16_step, _packed, _Planes,
 )
 from torch_port_util import (  # noqa: E402
-    H, W, golden_scene, jax_cam_dict, jax_inputs, np_tree, port_inputs,
-    port_params, rect_params,
+    H, W, check_golden_context, golden_context, golden_scene, input_dict,
+    jax_cam_dict, jax_inputs, np_tree, port_inputs, port_params, rect_dict,
+    rect_params, reference_arrays, regen_references, stored_port_inputs,
 )
 
 KEY = 2333
@@ -81,16 +88,8 @@ def _params(cams, geom=False):
     return p.with_geom(False) if geom else p
 
 
-def _rect_dict(rect):
-    d = np_tree(rect)
-    d["maps"] = [{k: m[k] for k in ("fwd_idx", "fwd_valid", "bwd_cidx",
-                                    "bwd_x", "bwd_y", "bwd_valid")}
-                 for m in d["maps"]]
-    return d
-
-
 def _pinhole_rect(rect):
-    return interop.rect_context(_rect_dict(rect), device="cpu")
+    return interop.rect_context(rect_dict(rect), device="cpu")
 
 
 def _port_in(cams, images, jin, src_depths=None, port_rect=_pinhole_rect):
@@ -106,27 +105,47 @@ def _port_in(cams, images, jin, src_depths=None, port_rect=_pinhole_rect):
     return dataclasses.replace(tin, rect=port_rect(jin.rect))
 
 
+def _port_init(tin, params, seeds=None):
+    tk_init, _ = TR.split(TR.key(KEY))
+    return TP.initialize_state(tin, port_params(params), tk_init, **(
+        {} if seeds is None else {k: torch.from_numpy(v)
+                                  for k, v in seeds.items()}))
+
+
+def _jax_halfstep(jin, state, params):
+    """The JAX package's parity-0 half-step (key 2333) from ``state``, a
+    ``PlaneState``."""
+    from acmmp_spherical_tpu.ops import propagate as JP
+    from acmmp_spherical_tpu.ops.ncc import ref_tap_context
+
+    ctx = ref_tap_context(jin.ref_image, jin.ref_cam, params)
+    _, k_iters = jax.random.split(jax.random.key(KEY))
+    k0, _ = jax.random.split(jax.random.fold_in(k_iters, 0))
+    return JP.checkerboard_halfstep(state, jin, ctx, params, k0, 0, 0)
+
+
+def _jax_state(tstate):
+    """The port's plane state as the JAX package's ``PlaneState``."""
+    from acmmp_spherical_tpu.core.plane import PlaneState
+
+    return PlaneState(**{f: jnp.asarray(getattr(tstate, f).numpy())
+                         for f in PlaneState._fields})
+
+
+def _port_halfstep(tstate, tin, params):
+    _, tk_iters = TR.split(TR.key(KEY))
+    tk0, _ = TR.split(TR.fold_in(tk_iters, 0))
+    return TP.checkerboard_halfstep(tstate, tin, port_params(params), tk0,
+                                    0, 0)
+
+
 def _halfstep_pair(jin, tin, params, seeds=None):
     """One parity-0 half-step of each package (key 2333) from the port's
     init state, handed to the JAX package: returns (state, JAX output, the
     port's output); the port runs on the JAX package's context."""
-    from acmmp_spherical_tpu.core.plane import PlaneState
-    from acmmp_spherical_tpu.ops import propagate as JP
-    from acmmp_spherical_tpu.ops.ncc import ref_tap_context
-
-    tp = port_params(params)
-    tk_init, tk_iters = TR.split(TR.key(KEY))
-    tstate = TP.initialize_state(tin, tp, tk_init, **({} if seeds is None else {
-        k: torch.from_numpy(v) for k, v in seeds.items()}))
-    state = PlaneState(**{f: jnp.asarray(getattr(tstate, f).numpy())
-                          for f in PlaneState._fields})
-    ctx = ref_tap_context(jin.ref_image, jin.ref_cam, params)
-    _, k_iters = jax.random.split(jax.random.key(KEY))
-    k0, _ = jax.random.split(jax.random.fold_in(k_iters, 0))
-    out = JP.checkerboard_halfstep(state, jin, ctx, params, k0, 0, 0)
-    tk0, _ = TR.split(TR.fold_in(tk_iters, 0))
-    tout = TP.checkerboard_halfstep(tstate, tin, tp, tk0, 0, 0)
-    return tstate, out, tout
+    tstate = _port_init(tin, params, seeds)
+    return (tstate, _jax_halfstep(jin, _jax_state(tstate), params),
+            _port_halfstep(tstate, tin, params))
 
 
 def _check_halfstep(tstate, out, tout, min_accept):
@@ -141,20 +160,103 @@ def _check_halfstep(tstate, out, tout, min_accept):
     assert np.mean(dc <= 1e-4) >= 0.99, np.mean(dc <= 1e-4)
 
 
+def _geom_fields(scene):
+    _, _, _, depths, normals = scene
+    src, seed_d, seed_n = golden_geom_fields(depths, normals)
+    return src, dict(seed_normal_world=seed_n, seed_depth=seed_d)
+
+
 @pytest.fixture(scope="module")
 def prepared(scene):
     """The JAX package's prepared inputs of the golden problem with the
     geometric pass's source depths (its context carries the source
-    disparities, which the photometric half-step ignores), the port's on
-    that context, and the geometric seeds."""
+    disparities, which the photometric half-step ignores) and the port's on
+    that context (the slow cases)."""
     from acmmp_spherical_tpu.ops import propagate as JP
 
-    cams, _, images, depths, normals = scene
-    src, seed_d, seed_n = golden_geom_fields(depths, normals)
+    cams, _, images, _, _ = scene
+    src = _geom_fields(scene)[0]
     jin = JP.prepare_inputs(jax_inputs(cams, images, src),
                             _params(cams, geom=True))
-    return dict(jin=jin, tin=_port_in(cams, images, jin, src),
-                seeds=dict(seed_normal_world=seed_n, seed_depth=seed_d))
+    return dict(jin=jin, tin=_port_in(cams, images, jin, src))
+
+
+def _coarse_planes(scene):
+    """C=2 planes: the ground truth and 1% off it."""
+    from acmmp_spherical_tpu.core import geometry as JG
+    from acmmp_spherical_tpu.ops.sampling import grid_coords
+
+    cams, _, _, depths, normals = scene
+    xs, ys = grid_coords(H, W)
+    n_cam = JG.normal_world_to_cam(cams[0], jnp.asarray(normals[0]))
+    w = JG.dist_to_origin(cams[0], xs, ys, jnp.asarray(depths[0]), n_cam)
+    return jnp.stack([n_cam, n_cam]), jnp.stack([w, w * 1.01])
+
+
+def _coarse_params(cams, packs):
+    return dataclasses.replace(_params(cams), radius_increment=5,
+                               rect_tap_pack=packs, rect_backmap_pack=packs)
+
+
+def _coarse_reference(scene, ctx, monkeypatch, with_geom, packs,
+                      parity=1):
+    """The 9-tap pattern through the reference's whole batched evaluation
+    on its context ``ctx``, its pallas_calls recorded: the transported D
+    and AB, and the rect kernel's raw planes (a tuple)."""
+    from acmmp_spherical_tpu.ops.pallas import ncc_rect as JNR
+
+    rec = _Planes(monkeypatch)
+    n, w = _packed(_coarse_planes(scene), parity)
+    JNR.rect_batched_ncc.__wrapped__(ctx, n, w,
+                                     _coarse_params(scene[0], packs),
+                                     interpret=True, parity=parity,
+                                     with_geom=with_geom)
+    (D, AB), raw = rec.seen
+    return D, AB, tuple(np.asarray(a) for a in (raw if with_geom
+                                                 else (raw,)))
+
+
+def build_reference():
+    """The JAX package's side of (2) and of (3)'s fast case, on
+    ``prepared``'s context (the stored golden geometric one): the inputs it
+    hands the port, its own seeded init state (key 2333), its geometric
+    half-step's ``w`` and costs from that state, and the coarse pattern's
+    transported D and AB and raw planes (packed, photometric)."""
+    from acmmp_spherical_tpu.ops import propagate as JP
+    from acmmp_spherical_tpu.ops.ncc import ref_tap_context
+
+    scene = golden_scene()
+    cams, _, images, _, _ = scene
+    src, seeds = _geom_fields(scene)
+    params = _params(cams, geom=True)
+    jin = JP.prepare_inputs(jax_inputs(cams, images, src), params)
+    check_golden_context(rect_geom=jin.rect)
+    k_init, _ = jax.random.split(jax.random.key(KEY))
+    state = JP.initialize_state(
+        jin, params, k_init,
+        ctx=ref_tap_context(jin.ref_image, jin.ref_cam, params),
+        **{k: jnp.asarray(v) for k, v in seeds.items()})
+    out = _jax_halfstep(jin, state, params)
+    with pytest.MonkeyPatch.context() as mp:
+        D, AB, (raw,) = _coarse_reference(scene, jin.rect, mp, False, True)
+    return dict(inputs=input_dict(jin), state=np_tree(state),
+                halfstep_w=np.asarray(out.w),
+                halfstep_cost=np.asarray(out.cost),
+                coarse=dict(D=np.asarray(D), AB=np.asarray(AB), raw=raw))
+
+
+REFERENCES = {"ref_prescreen": build_reference}
+
+
+@pytest.fixture(scope="module")
+def stored(scene):
+    """The JAX package's stored side of (2) and (3), and the port's inputs
+    on the same context."""
+    ref = reference_arrays("ref_prescreen", build_reference)
+    tin = stored_port_inputs(ref["inputs"], scene[2],
+                             golden_context()["rect_geom"],
+                             _geom_fields(scene)[0])
+    return ref, tin
 
 
 @pytest.mark.slow
@@ -164,27 +266,14 @@ def test_photometric_halfstep_from_identical_state(scene, prepared):
                                     _params(scene[0])), 0.1)
 
 
-def test_geometric_halfstep_from_identical_state(scene, prepared):
+def test_geometric_halfstep_from_identical_state(scene, stored):
     """(2)"""
-    _check_halfstep(*_halfstep_pair(prepared["jin"], prepared["tin"],
-                                    _params(scene[0], geom=True),
-                                    seeds=prepared["seeds"]), 0.05)
-
-
-@pytest.fixture(scope="module")
-def coarse_setup(scene, prepared):
-    """The golden problem's context in both packages (``prepared``'s), and
-    C=2 planes: the ground truth and 1% off it."""
-    from acmmp_spherical_tpu.core import geometry as JG
-    from acmmp_spherical_tpu.ops.sampling import grid_coords
-
-    cams, _, _, depths, normals = scene
-    xs, ys = grid_coords(H, W)
-    n_cam = JG.normal_world_to_cam(cams[0], jnp.asarray(normals[0]))
-    w = JG.dist_to_origin(cams[0], xs, ys, jnp.asarray(depths[0]), n_cam)
-    return dict(p=_params(cams), ctx=prepared["jin"].rect,
-                tctx=prepared["tin"].rect,
-                planes=(jnp.stack([n_cam, n_cam]), jnp.stack([w, w * 1.01])))
+    ref, tin = stored
+    tstate = interop.plane_state(ref["state"], device="cpu")
+    out = types.SimpleNamespace(w=ref["halfstep_w"],
+                                cost=ref["halfstep_cost"])
+    _check_halfstep(tstate, out, _port_halfstep(
+        tstate, tin, _params(scene[0], geom=True)), 0.05)
 
 
 @pytest.mark.parametrize("with_geom,packs", [
@@ -192,25 +281,20 @@ def coarse_setup(scene, prepared):
     pytest.param(False, False, marks=pytest.mark.slow)],
     ids=["packed", "packed-geom", "f32"])
 def test_plain_kernel_at_coarse_pattern_matches_pallas(
-        coarse_setup, monkeypatch, with_geom, packs):
+        scene, stored, request, monkeypatch, with_geom, packs):
     """(3) the 9-tap pattern through the reference's whole batched
-    evaluation (its pallas_calls recorded), the port's plain kernel on the
-    transported D and AB."""
+    evaluation (its pallas_calls recorded; the fast case's stored), the
+    port's plain kernel on the transported D and AB."""
     parity = 1
-    p = dataclasses.replace(
-        coarse_setup["p"], radius_increment=5, rect_tap_pack=packs,
-        rect_backmap_pack=packs)
-    rec = _Planes(monkeypatch)
-    from acmmp_spherical_tpu.ops.pallas import ncc_rect as JNR
-
-    n, w = _packed(coarse_setup["planes"], parity)
-    JNR.rect_batched_ncc.__wrapped__(coarse_setup["ctx"], n, w, p,
-                                     interpret=True, parity=parity,
-                                     with_geom=with_geom)
-    (D, AB), raw = rec.seen
-    ref = tuple(np.asarray(a) for a in (raw if with_geom else (raw,)))
-    t = coarse_setup["tctx"]
-    tp = port_params(p)
+    if (with_geom, packs) == (False, True):
+        c = stored[0]["coarse"]
+        D, AB, ref = c["D"], c["AB"], (c["raw"],)
+    else:
+        D, AB, ref = _coarse_reference(
+            scene, request.getfixturevalue("prepared")["jin"].rect,
+            monkeypatch, with_geom, packs, parity)
+    t = stored[1].rect
+    tp = port_params(_coarse_params(scene[0], packs))
     assert len(TNR._weight_consts(tp)[4]) == 3      # offsets -5, 0, 5
     got = TNR.rect_ncc_plain(
         t.srow, t.tile_oy, t.tile_ox, t.rect_ref, t.rect_src,
@@ -302,7 +386,7 @@ def test_sphere_halfstep_from_identical_state():
 
     jin = JP.prepare_inputs(jax_inputs(cams, images), params)
     tin = _port_in(cams, images, jin, port_rect=lambda r: (
-        interop.sphere_rect_context(_rect_dict(r), device="cpu")))
+        interop.sphere_rect_context(rect_dict(r), device="cpu")))
     tstate, out, tout = _halfstep_pair(jin, tin, params)
     j_acc = np.asarray(out.w) != tstate.w.numpy()
     t_acc = tout.w.numpy() != tstate.w.numpy()
@@ -379,12 +463,16 @@ def sphere_pipeline_witness(work, width=128, height=64, n_views=4,
 
 if __name__ == "__main__":
     # JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_prescreen.py
-    # [WORK_DIR]: the SPHERE pipeline witness (tens of minutes on a CPU)
+    # [WORK_DIR]: the SPHERE pipeline witness (tens of minutes on a CPU);
+    # with --regen: the stored reference of (2) and (3)
     import sys
     import tempfile
 
     import conftest  # noqa: F401  (JAX on the CPU)
 
+    if "--regen" in sys.argv:
+        regen_references(REFERENCES)
+        sys.exit()
     with tempfile.TemporaryDirectory() as tmp:
         print(json.dumps(sphere_pipeline_witness(
             sys.argv[1] if len(sys.argv) > 1 else tmp)), flush=True)

@@ -20,17 +20,26 @@ init.
 
 The rectified path's cases are in test_torch_prior_rect_pass.py, the
 hierarchy half-steps in test_torch_hier_pass.py, the golden prior and
-hierarchy passes in test_torch_prior_golden.py (each file stays near three
-minutes on a CPU).
+hierarchy passes in test_torch_prior_golden.py.
+
+The reference's side of each case (its init states, the prior fields and
+its half-step's ``w``) is stored in tests/fixtures/ref_prior_{exact,
+window}.npz (``build_reference``), on the reference's contexts of
+ref_golden_context.npz, so no test here compiles the reference's
+interpret-mode programs; tests/test_torch_reference_fixtures.py (slow)
+rebuilds each file and requires it equal, bit for bit.  Regenerate the
+three files (CPU, interpret mode, about 5 minutes):
+    JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_prior_pass.py --regen
 """
 
 import dataclasses
+import functools
+import sys
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -41,7 +50,9 @@ from acmmp_spherical_torch.ops import propagate as TP  # noqa: E402
 from acmmp_spherical_torch.ops import rng as TR  # noqa: E402
 
 from torch_port_util import (  # noqa: E402
-    golden_scene, jax_cam_dict, jax_inputs, np_tree, port_params, rect_params,
+    build_golden_context, check_golden_context, golden_context, golden_scene,
+    input_dict, jax_inputs, np_tree, port_params, rect_params,
+    reference_arrays, regen_references, stored_port_inputs,
 )
 
 PATHS = ("exact", "window", "rect")
@@ -86,99 +97,100 @@ def _prior_fields(cams, depths):
     return n, w, mask
 
 
-def _build_identical_state(scene, path, mode):
-    """(reference inputs, tap context, params, init state, the port's
-    inputs, the reference's previous state) of a planar-prior (``mode``
-    "prior") or hierarchy pass; the reference's state is what both
-    packages' half-steps start from."""
+def build_reference(path, mode):
+    """The reference's side of a planar-prior (``mode`` "prior") or
+    hierarchy half-step on ``path`` from GOLDEN_KEY: the inputs it hands
+    the port, its init state (and, for the prior, the previous state and
+    the prior fields) and its half-step's ``w``.  Its contexts are the
+    stored golden ones."""
     from acmmp_spherical_tpu.ops import propagate as JP
     from acmmp_spherical_tpu.ops.ncc import ref_tap_context
 
-    cams, _, images, depths, normals = scene
+    cams, _, images, depths, normals = golden_scene()
     params = _jax_params(path, cams)
     jin = JP.prepare_inputs(jax_inputs(cams, images), params)
     ctx = ref_tap_context(jin.ref_image, jin.ref_cam, params)
-    k_init, _ = jax.random.split(jax.random.key(GOLDEN_KEY))
-    d = dict(ref_image=images[0], src_images=images[1:],
-             ref_cam=jax_cam_dict(cams[0]), src_cams=jax_cam_dict(jin.src_cams),
-             src_valid=np.asarray(jin.src_valid),
-             depth_range=np.asarray(jin.depth_range))
-    if path == "rect":
-        rect = np_tree(jin.rect)
-        rect["maps"] = [{k: m[k] for k in ("fwd_idx", "fwd_valid",
-                                           "bwd_cidx", "bwd_x", "bwd_y",
-                                           "bwd_valid")}
-                        for m in rect["maps"]]
-        d["rect"] = rect
-    tin = interop.patchmatch_inputs(d, device="cpu")
-    prev = None
+    check_golden_context(taps=ctx, **({} if jin.rect is None else {
+        "rect": jin.rect}))
+    k_init, k_iters = jax.random.split(jax.random.key(GOLDEN_KEY))
+    out = dict(inputs=input_dict(jin))
     if mode == "prior":
         prev = JP.initialize_state(jin, params, k_init, ctx=ctx)
         n, w, mask = _prior_fields(cams, depths)
         jin = jin._replace(prior_normal=jnp.asarray(n),
                            prior_w=jnp.asarray(w),
                            prior_mask=jnp.asarray(mask))
-        tin = dataclasses.replace(tin, prior_normal=torch.from_numpy(n),
-                                  prior_w=torch.from_numpy(w),
-                                  prior_mask=torch.from_numpy(mask))
         params = params.with_planar_prior()
         state = JP.initialize_state(jin, params, jax.random.fold_in(k_init, 1),
                                     prev_state=prev, ctx=ctx)
+        out.update(prev=np_tree(prev), prior=dict(normal=n, w=w, mask=mask))
     else:
         seed_d, seed_n = hierarchy_seed(depths, normals)
         params = params.with_hierarchy()
         state = JP.initialize_state(jin, params, k_init, ctx=ctx,
                                     seed_normal_world=jnp.asarray(seed_n),
                                     seed_depth=jnp.asarray(seed_d))
-    return jin, ctx, params, state, tin, prev
+    k0, _ = jax.random.split(jax.random.fold_in(k_iters, 0))
+    half = JP.checkerboard_halfstep(state, jin, ctx, params, k0, 0, 0)
+    return dict(out, state=np_tree(state), halfstep_w=np.asarray(half.w))
 
 
-_STATES: dict = {}
+def references(mode, paths):
+    return {f"ref_{mode}_{path}": functools.partial(build_reference, path,
+                                                    mode)
+            for path in paths}
+
+
+# the golden context first: each case's build checks its contexts against it
+REFERENCES = dict(ref_golden_context=build_golden_context,
+                  **references("prior", ("exact", "window")))
 
 
 def identical_state(scene, path, mode):
-    """``_build_identical_state``, built once per (path, mode) and test
-    process (the reference's rectified context and init take about half a
-    minute in interpret mode)."""
-    if (path, mode) not in _STATES:
-        _STATES[path, mode] = _build_identical_state(scene, path, mode)
-    return _STATES[path, mode]
+    """(the reference's params, its stored side of the case, the port's
+    inputs on the same contexts)."""
+    cams, _, images, _, _ = scene
+    params = _jax_params(path, cams)
+    params = (params.with_planar_prior() if mode == "prior"
+              else params.with_hierarchy())
+    ref = reference_arrays(f"ref_{mode}_{path}",
+                           functools.partial(build_reference, path, mode))
+    rect = golden_context()["rect"] if path == "rect" else None
+    tin = stored_port_inputs(ref["inputs"], images, rect)
+    if mode == "prior":
+        tin = dataclasses.replace(tin, **{
+            f"prior_{k}": torch.from_numpy(v) for k, v in ref["prior"].items()})
+    return params, ref, tin
 
 
-def port_ctx(ctx, path):
+def port_ctx(path):
     return None if path == "rect" else interop.ref_tap_context(
-        np_tree(ctx), "cpu")
+        golden_context()["taps"], "cpu")
 
 
 def check_prior_init_draws(scene, path):
-    jin, ctx, params, state, tin, prev = identical_state(scene, path,
-                                                         "prior")
+    params, ref, tin = identical_state(scene, path, "prior")
     k_init, _ = TR.split(TR.key(GOLDEN_KEY))
     ts = TP.initialize_state(
         tin, port_params(params), TR.fold_in(k_init, 1),
-        prev_state=interop.plane_state(np_tree(prev), device="cpu"),
-        ctx=port_ctx(ctx, path))
-    use_prior = np.asarray(jin.prior_mask) & (np.asarray(prev.cost) >= 0.1)
+        prev_state=interop.plane_state(ref["prev"], device="cpu"),
+        ctx=port_ctx(path))
+    use_prior = ref["prior"]["mask"] & (ref["prev"]["cost"] >= 0.1)
     assert use_prior.mean() > 0.5
-    np.testing.assert_array_equal(ts.w.numpy(), np.asarray(state.w))
-    np.testing.assert_allclose(ts.normal.numpy(), np.asarray(state.normal),
+    np.testing.assert_array_equal(ts.w.numpy(), ref["state"]["w"])
+    np.testing.assert_allclose(ts.normal.numpy(), ref["state"]["normal"],
                                rtol=0, atol=1e-6)
 
 
 def halfstep_agreement(scene, path, mode):
     """(accept-mask agreement, the reference's accepted fraction) of one
     half-step of each package from the reference's init state."""
-    from acmmp_spherical_tpu.ops import propagate as JP
-
-    jin, ctx, params, state, tin, _ = identical_state(scene, path, mode)
-    _, k_iters = jax.random.split(jax.random.key(GOLDEN_KEY))
-    k0, _ = jax.random.split(jax.random.fold_in(k_iters, 0))
-    out = JP.checkerboard_halfstep(state, jin, ctx, params, k0, 0, 0)
-    tstate = interop.plane_state(np_tree(state), device="cpu")
+    params, ref, tin = identical_state(scene, path, mode)
+    tstate = interop.plane_state(ref["state"], device="cpu")
     tk0, _ = TR.split(TR.fold_in(TR.split(TR.key(GOLDEN_KEY))[1], 0))
     tout = TP.checkerboard_halfstep(tstate, tin, port_params(params), tk0,
-                                    0, 0, ctx=port_ctx(ctx, path))
-    j_acc = np.asarray(out.w) != np.asarray(state.w)
+                                    0, 0, ctx=port_ctx(path))
+    j_acc = ref["halfstep_w"] != ref["state"]["w"]
     t_acc = tout.w.numpy() != tstate.w.numpy()
     return (j_acc == t_acc).mean(), j_acc.mean()
 
@@ -203,10 +215,13 @@ def test_windowed_prior_refinement_takes_the_exact_path(scene, monkeypatch):
     """Candidates 0 and 2 of the windowed prior half-step's refinement (the
     one 5-field evaluation) carry i.i.d. prior-guided depths: the reference
     evaluates them with ``multiview_ncc``, and so must the port."""
-    from acmmp_spherical_tpu.ops.ncc import multiview_ncc
+    from acmmp_spherical_tpu.core.camera import stack_cameras
+    from acmmp_spherical_tpu.ops.ncc import RefTapContext, multiview_ncc
 
-    jin, ctx, params, state, tin, _ = identical_state(scene, "window",
-                                                       "prior")
+    cams, _, images, _, _ = scene
+    params, ref, tin = identical_state(scene, "window", "prior")
+    ctx = RefTapContext(**{k: jnp.asarray(v) for k, v in
+                           golden_context()["taps"].items()})
     calls = []
     batched = TP._batched_cost_vectors
 
@@ -218,23 +233,28 @@ def test_windowed_prior_refinement_takes_the_exact_path(scene, monkeypatch):
 
     monkeypatch.setattr(TP, "_batched_cost_vectors", record)
     tk0, _ = TR.split(TR.fold_in(TR.split(TR.key(GOLDEN_KEY))[1], 0))
-    TP.checkerboard_halfstep(interop.plane_state(np_tree(state), "cpu"), tin,
+    TP.checkerboard_halfstep(interop.plane_state(ref["state"], "cpu"), tin,
                              port_params(params), tk0, 0, 0,
-                             ctx=port_ctx(ctx, "window"))
+                             ctx=port_ctx("window"))
     assert len(calls) == 1
     normals, ws, cv = calls[0]
     from acmmp_spherical_tpu.ops.sampling import (
         checkerboard_coords, checkerboard_pack,
     )
-    xs, ys = checkerboard_coords(*jin.ref_image.shape, 0)
+    xs, ys = checkerboard_coords(*images[0].shape, 0)
     ctx_p = ctx._replace(ref_taps=checkerboard_pack(ctx.ref_taps, 0),
                          weights=checkerboard_pack(ctx.weights, 0),
                          center=checkerboard_pack(ctx.center, 0), xs=xs,
                          ys=ys)
     for i in (0, 2):
         ref = np.asarray(multiview_ncc(
-            jin.src_images, jin.src_cams, jin.ref_cam,
+            jnp.asarray(images[1:]), stack_cameras(cams[1:]), cams[0],
             jnp.asarray(normals[i].numpy()), jnp.asarray(ws[i].numpy()),
             ctx_p, params))
         close = np.abs(cv[i].numpy() - ref) <= 1e-4
         assert close.mean() >= 0.995, (i, close.mean())
+
+
+if __name__ == "__main__":
+    if "--regen" in sys.argv:
+        regen_references(REFERENCES)

@@ -20,7 +20,6 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
 
 from acmmp_spherical_torch.quality_report import main  # noqa: E402
 

@@ -17,7 +17,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
 
 from acmmp_spherical_torch.config import PipelineConfig  # noqa: E402
 from acmmp_spherical_torch.core.camera import SPHERE  # noqa: E402

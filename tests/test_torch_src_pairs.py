@@ -29,7 +29,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
 
 from acmmp_spherical_torch.bench import (  # noqa: E402
     GOLDEN_SCENE, SPHERE_GOLDEN_SCENE, make_problem, make_sphere_problem,

@@ -19,7 +19,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
 
 from acmmp_spherical_tpu.core.camera import PINHOLE, SPHERE  # noqa: E402
 from acmmp_spherical_tpu.utils import synthetic as JS  # noqa: E402

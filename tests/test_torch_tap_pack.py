@@ -50,7 +50,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -70,7 +69,7 @@ from test_regression_fixture import (  # noqa: E402
     FIXTURE_RECT, FIXTURE_WARP, _stats, check_against_fixture,
 )
 from torch_port_util import (  # noqa: E402
-    H, W, golden_scene, np_tree, port_inputs, port_params, rect_params,
+    H, W, golden_scene, port_inputs, port_params, rect_dict, rect_params,
 )
 
 KEY = 2333
@@ -100,10 +99,7 @@ def setup():
 
 
 def _tctx(ctx):
-    d = np_tree(ctx)
-    d["maps"] = [{k: m[k] for k in ("fwd_idx", "fwd_valid", "bwd_cidx", "bwd_x",
-                                    "bwd_y", "bwd_valid")} for m in d["maps"]]
-    return interop.rect_context(d, device="cpu")
+    return interop.rect_context(rect_dict(ctx), device="cpu")
 
 
 def _packed(planes, parity):

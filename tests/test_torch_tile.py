@@ -18,7 +18,9 @@
   conditioning of the exact NCC, Queue 3 item 6), and the accept flips
   follow.  95% is the share ``tests/test_torch_parallel.py`` holds
   ``multichip_step`` to.  These shares: ``JAX_PLATFORMS=cpu
-  PYTHONPATH=.:tests python tests/test_torch_tile.py`` (~40 s).
+  PYTHONPATH=.:tests python tests/test_torch_tile.py`` (~40 s).  The JAX
+  package's depth is stored in tests/fixtures/ref_tile_pass.npz; rebuild
+  it with ``--regen`` after that command (~30 s).
 * (c) The port on 4 slots against 1 slot: the pinhole problem of (b) and
   the SPHERE golden ring at 128x64x3 (its ring halo crosses the seam),
   depth, normal and cost within ``rtol=1e-5, atol=1e-4`` at every pixel
@@ -53,7 +55,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
 
 from acmmp_spherical_torch.ops import rng as R  # noqa: E402
 from acmmp_spherical_torch.ops.propagate import _slab_uniform  # noqa: E402
@@ -71,6 +72,8 @@ from acmmp_spherical_torch.parallel.view_parallel import (  # noqa: E402
     _problem_inputs,
 )
 from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch  # noqa: E402
+
+from torch_port_util import reference_arrays, regen_references  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 W, H, N_SRC = 64, 32, 3
@@ -223,10 +226,17 @@ def _jax_tile_pass(n_iterations=1):
     return [np.asarray(a) for a in out]
 
 
+def build_tile_reference():
+    return dict(depth=_jax_tile_pass()[0])
+
+
+REFERENCES = {"ref_tile_pass": build_tile_reference}
+
+
 def test_tile_pass_matches_reference(synthetic):
     out, gt = synthetic
     depth = out[4][0].numpy()
-    ref = _jax_tile_pass()[0]
+    ref = reference_arrays("ref_tile_pass", build_tile_reference)["depth"]
     agree = float(np.mean(np.abs(depth - ref) / ref < AGREE_REL))
     assert agree >= AGREE_MIN, agree
     assert np.median(np.abs(depth - gt) / gt) < 0.25
@@ -428,6 +438,10 @@ def agreement_report() -> dict:
 
 if __name__ == "__main__":
     # JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_tile.py
+    # [--regen]
     import conftest  # noqa: F401  (the 8 virtual CPU devices)
 
-    print(json.dumps(agreement_report(), indent=1))
+    if "--regen" in sys.argv:
+        regen_references(REFERENCES)
+    else:
+        print(json.dumps(agreement_report(), indent=1))

@@ -39,8 +39,13 @@ reference's tap context is handed to the port through ``interop``.
   against tests/fixtures/golden_pass_stats_odd.json: within 2e-3, the
   windowed one within 1e-2 (worst measured 2.6x 2e-3).
 
-Regenerate both fixtures from the reference (CPU, interpret mode):
-    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_window.py --regen
+The reference's side of the windowed half-step and of the 2-iteration pass
+is stored in tests/fixtures/ref_window_halfstep.npz (on the tap context of
+ref_golden_context.npz) and ref_window_two_iterations.npz.
+
+Regenerate those and both JSON fixtures from the reference (CPU,
+interpret mode, about 6 minutes):
+    JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_window.py --regen
 Median depth error of both packages' windowed passes on the bench ring at
 smaller sizes (CPU; the reference in interpret mode):
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_window.py \\
@@ -56,7 +61,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -71,8 +75,9 @@ from acmmp_spherical_torch.pipeline.patchmatch import run_patchmatch  # noqa: E4
 
 from test_regression_fixture import _stats, check_against_fixture  # noqa: E402
 from torch_port_util import (  # noqa: E402
-    WINDOW_EDGE_CASES, golden_scene, jax_inputs, np_tree, port_inputs,
-    port_params, rect_params, window_edge_case,
+    WINDOW_EDGE_CASES, check_golden_context, golden_context, golden_scene,
+    jax_inputs, np_tree, port_inputs, port_params, rect_params,
+    reference_arrays, regen_references, window_edge_case,
 )
 
 FIXTURES = pathlib.Path(__file__).parent / "fixtures"
@@ -280,47 +285,75 @@ def test_fast_cost_vector_off_tile_grid(odd_scene, with_geom):
         assert agree >= 0.995 and close >= 0.995, (agree, close)
 
 
-def test_windowed_halfstep_from_identical_state():
+def build_halfstep_reference():
+    """The reference's side of the windowed half-step: its init state (key
+    2333) and one half-step's ``w`` and costs, on the stored golden tap
+    context."""
     from acmmp_spherical_tpu.ops import propagate as JP
     from acmmp_spherical_tpu.ops.ncc import ref_tap_context
 
-    cams, tcams, images, _, _ = golden_scene()
+    cams, _, images, _, _ = golden_scene()
     params = _window_params()
     jin = JP.prepare_inputs(jax_inputs(cams, images), params)
     ctx = ref_tap_context(jin.ref_image, jin.ref_cam, params)
+    check_golden_context(taps=ctx)
     k_init, k_iters = jax.random.split(jax.random.key(KEY))
     state = JP.initialize_state(jin, params, k_init, ctx=ctx)
     k0, _ = jax.random.split(jax.random.fold_in(k_iters, 0))
     out = JP.checkerboard_halfstep(state, jin, ctx, params, k0, 0, 0)
+    return dict(state=np_tree(state), halfstep_w=np.asarray(out.w),
+                halfstep_cost=np.asarray(out.cost))
 
-    tstate = interop.plane_state(np_tree(state), device="cpu")
+
+REFERENCES = {"ref_window_halfstep": build_halfstep_reference}
+
+
+def test_windowed_halfstep_from_identical_state():
+    cams, tcams, images, _, _ = golden_scene()
+    params = _window_params()
+    ref = reference_arrays("ref_window_halfstep", build_halfstep_reference)
+    tstate = interop.plane_state(ref["state"], device="cpu")
     tk0, _ = TR.split(TR.fold_in(TR.split(TR.key(KEY))[1], 0))
     tout = TP.checkerboard_halfstep(
         tstate, port_inputs(tcams, images), port_params(params), tk0, 0, 0,
-        ctx=interop.ref_tap_context(np_tree(ctx), "cpu"))
-    j_acc = np.asarray(out.w) != np.asarray(state.w)
+        ctx=interop.ref_tap_context(golden_context()["taps"], "cpu"))
+    j_acc = ref["halfstep_w"] != ref["state"]["w"]
     t_acc = tout.w.numpy() != tstate.w.numpy()
     assert (j_acc == t_acc).mean() >= 0.995, (j_acc == t_acc).mean()
     assert j_acc.mean() > 0.1
-    dc = np.abs(np.asarray(out.cost) - tout.cost.numpy())
+    dc = np.abs(ref["halfstep_cost"] - tout.cost.numpy())
     assert np.mean(dc <= 1e-4) >= 0.97, np.mean(dc <= 1e-4)
 
 
-def test_two_iteration_windowed_pass_matches_reference():
-    """tests/test_fast_ncc.py's pass: 128x32x3src, focal 100, key 0."""
+def build_two_iteration_reference():
+    """The reference's 2-iteration windowed pass of
+    ``test_two_iteration_windowed_pass_matches_reference``: depth, normal
+    and cost."""
     from acmmp_spherical_tpu.pipeline.patchmatch import (
         run_patchmatch as jax_run,
     )
 
-    cams, tcams, images, depths, _ = golden_scene(128, 32, focal=100.0)
-    params = _window_params(max_iterations=2)
-    jd, jn, jc, _ = jax_run(jax_inputs(cams, images), params,
+    cams, _, images, _, _ = golden_scene(128, 32, focal=100.0)
+    jd, jn, jc, _ = jax_run(jax_inputs(cams, images),
+                            _window_params(max_iterations=2),
                             jax.random.key(0))
+    return dict(depth=np.asarray(jd), normal=np.asarray(jn),
+                cost=np.asarray(jc))
+
+
+REFERENCES["ref_window_two_iterations"] = build_two_iteration_reference
+
+
+def test_two_iteration_windowed_pass_matches_reference():
+    """tests/test_fast_ncc.py's pass: 128x32x3src, focal 100, key 0."""
+    _, tcams, images, depths, _ = golden_scene(128, 32, focal=100.0)
+    params = _window_params(max_iterations=2)
+    ref = reference_arrays("ref_window_two_iterations",
+                           build_two_iteration_reference)
     td, tn, tc, _ = run_patchmatch(port_inputs(tcams, images),
                                    port_params(params), 0)
     check_against_fixture(_stats(td.numpy(), tn.numpy(), tc.numpy()),
-                          _stats(np.asarray(jd), np.asarray(jn),
-                                 np.asarray(jc)),
+                          _stats(ref["depth"], ref["normal"], ref["cost"]),
                           rtol=WINDOW_TOL, atol=WINDOW_TOL)
     rel = np.abs(td.numpy() - depths[0]) / depths[0]
     assert np.median(rel[4:-4, 8:-8]) < 0.05
@@ -389,6 +422,7 @@ if __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     jax.config.update("jax_platforms", "cpu")
     if "--regen" in sys.argv:
+        regen_references(REFERENCES)
         FIXTURE_WINDOW.write_text(json.dumps(reference_pass(
             golden_scene(), _window_params(), KEY), indent=1))
         odd = golden_scene(ODD_W, ODD_H)

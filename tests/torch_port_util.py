@@ -11,10 +11,12 @@ default to the CUDA device).
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 
 import numpy as np
 
 W, H, N_VIEWS = 96, 64, 4
+FIXTURES = pathlib.Path(__file__).parent / "fixtures"
 
 
 def np_tree(x):
@@ -26,6 +28,76 @@ def np_tree(x):
     if x is None:
         return None
     return np.asarray(x)
+
+
+def _flatten(tree, key, out, nones):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{key}{k}/", out, nones)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{key}#{i}/", out, nones)
+    elif tree is None:
+        nones.append(key[:-1])
+    else:
+        out[key[:-1]] = np.asarray(tree)
+
+
+def _unflatten(flat: dict):
+    root: dict = {}
+    for key, value in flat.items():
+        *path, last = key.split("/")
+        node = root
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = value
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.startswith("#") for k in node):
+            return [lists(node[f"#{i}"]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(root)
+
+
+def save_tree(path, tree: dict):
+    """Write a nested dict/list tree of arrays (and Nones) losslessly."""
+    flat, nones = {}, []
+    _flatten(tree, "", flat, nones)
+    np.savez_compressed(path, **flat, __none__=np.array(nones, dtype=str))
+
+
+def load_tree(path) -> dict:
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files if k != "__none__"}
+        flat.update((k, None) for k in z["__none__"])
+    return _unflatten(flat)
+
+
+def reference_arrays(name: str, build, regen: bool = False) -> dict:
+    """The JAX package's outputs stored in tests/fixtures/<name>.npz: a tree
+    of numpy arrays, in the dtypes the JAX package returned.  With
+    ``regen``, ``build()`` (the code that runs the JAX package) makes the
+    tree and the file is written anew.  The tests read the file, so none of
+    them compiles the reference's interpret-mode Pallas programs;
+    tests/test_torch_reference_fixtures.py (slow) rebuilds every file and
+    requires it equal, bit for bit."""
+    path = FIXTURES / f"{name}.npz"
+    if regen:
+        save_tree(path, build())
+        print(f"wrote {path}", flush=True)
+    return load_tree(path)
+
+
+def regen_references(references: dict):
+    """``--regen`` of a test file: rebuild each of its stored references,
+    with JAX set up as under pytest."""
+    import conftest  # noqa: F401
+
+    for name, build in references.items():
+        reference_arrays(name, build, regen=True)
 
 
 def jax_cam_dict(cam) -> dict:
@@ -110,6 +182,98 @@ def port_inputs(tcams, images, src_depths=None):
         depth_range=tcams[0].depth_range,
         src_depths=None if src_depths is None else torch.from_numpy(
             np.ascontiguousarray(src_depths)))
+
+
+def rect_dict(rect) -> dict:
+    """The reference's rectified context (pinhole or SPHERE) as
+    ``interop.rect_context`` or ``interop.sphere_rect_context`` reads it:
+    its transport maps less the fields the port does not take."""
+    d = np_tree(rect)
+    d["maps"] = [{k: m[k] for k in ("fwd_idx", "fwd_valid", "bwd_cidx",
+                                    "bwd_x", "bwd_y", "bwd_valid")}
+                 for m in d["maps"]]
+    return d
+
+
+def input_dict(jin) -> dict:
+    """The reference's prepared inputs as ``interop.patchmatch_inputs``
+    reads them, less the images, the source depths and the rectified
+    context."""
+    return dict(ref_cam=jax_cam_dict(jin.ref_cam),
+                src_cams=jax_cam_dict(jin.src_cams),
+                src_valid=np.asarray(jin.src_valid),
+                depth_range=np.asarray(jin.depth_range))
+
+
+def assert_tree_equal(got, want, where=""):
+    """Equal trees of arrays: the same keys, dtypes and shapes, and the same
+    bits."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and got.keys() == want.keys(), where
+        for k in want:
+            assert_tree_equal(got[k], want[k], f"{where}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_tree_equal(g, w, f"{where}/{i}")
+    elif want is None:
+        assert got is None, where
+    else:
+        g, w = np.asarray(got), np.asarray(want)
+        assert (g.dtype, g.shape) == (w.dtype, w.shape), (where, g.dtype,
+                                                          w.dtype)
+        assert g.tobytes() == w.tobytes(), where
+
+
+def build_golden_context() -> dict:
+    """The reference's contexts of the golden problem that the port's
+    half-step tests run on: its tap context (``taps``: the exact and
+    windowed paths'; it depends on the patch and the sigmas only), the
+    rectified context of ``rect_params`` (``rect``) and the source
+    disparities of the geometric pass's, on ``bench.golden_geom_fields``'s
+    source depths (``rect_sdisp``; the rest of that context is ``rect``'s)."""
+    from acmmp_spherical_torch.bench import golden_geom_fields
+    from acmmp_spherical_tpu.ops import propagate as JP
+    from acmmp_spherical_tpu.ops.ncc import ref_tap_context
+
+    cams, _, images, depths, normals = golden_scene()
+    params = rect_params(cams)
+    jin = JP.prepare_inputs(jax_inputs(cams, images), params)
+    ctx = ref_tap_context(jin.ref_image, jin.ref_cam, params)
+    src = golden_geom_fields(depths, normals)[0]
+    geom = rect_dict(JP.prepare_inputs(jax_inputs(cams, images, src),
+                                       params.with_geom(False)).rect)
+    rect = rect_dict(jin.rect)
+    assert_tree_equal(dict(geom, rect_sdisp=None), rect, "rect_geom")
+    return dict(taps=np_tree(ctx), rect=rect, rect_sdisp=geom["rect_sdisp"])
+
+
+def golden_context() -> dict:
+    """``build_golden_context``'s stored tree, with the geometric pass's
+    whole rectified context (``rect_geom``)."""
+    gold = reference_arrays("ref_golden_context", build_golden_context)
+    return dict(gold, rect_geom=dict(gold["rect"],
+                                     rect_sdisp=gold["rect_sdisp"]))
+
+
+def check_golden_context(**contexts):
+    """In a reference's build: its own contexts (``taps=``, ``rect=``,
+    ``rect_geom=``; JAX objects) are the stored golden ones that the port's
+    side reads."""
+    gold = golden_context()
+    for name, ctx in contexts.items():
+        assert_tree_equal(np_tree(ctx) if name == "taps" else rect_dict(ctx),
+                          gold[name], name)
+
+
+def stored_port_inputs(inputs: dict, images, rect=None, src_depths=None):
+    """The port's PatchMatchInputs, on the CPU, of a stored reference's
+    inputs and rectified context, with the scene's images."""
+    from acmmp_spherical_torch import interop
+
+    return interop.patchmatch_inputs(dict(
+        inputs, ref_image=images[0], src_images=images[1:], rect=rect,
+        src_depths=src_depths), device="cpu")
 
 
 # Sample grids for the windowed sampler's window placement at the edges of
