@@ -375,12 +375,14 @@ def load_seeds(sp: ScenePaths, lp: LoadedProblem, image_id: int, *,
                geom: bool, hierarchy: bool, multi_geometry: bool,
                device) -> dict:
     """The seed fields of a geometric or hierarchy pass, as
-    ``run_patchmatch`` keywords; empty for a photometric pass."""
+    ``run_patchmatch`` keywords (a hierarchy pass's in the span
+    ``hier_seed``); empty for a photometric pass."""
     if geom:
         fields = _load_seed(sp, image_id, multi_geometry=multi_geometry,
                             device=device)
     elif hierarchy:
-        fields = _load_hierarchy_seed(sp, lp, image_id, device)
+        with span("hier_seed"):
+            fields = _load_hierarchy_seed(sp, lp, image_id, device)
     else:
         return {}
     return dict(zip(("seed_normal_world", "seed_depth"), fields))
@@ -410,7 +412,9 @@ def prior_build(sp: ScenePaths, lp: LoadedProblem, image_id: int, depth,
     (ACMMP.cpp:904-1011), with ``triangulation.png`` written: (normal, w,
     mask), or None when the prior is empty and the prior round is
     skipped.  Timed as ``prior_build``, with the copies of ``depth`` and
-    ``cost`` to the host (a wait for the device's queue) its ``fetch``."""
+    ``cost`` to the host (a wait for the device's queue) its ``fetch``,
+    ``build_planar_prior``'s spans (``support``, ``triangulate``,
+    ``raster``) and ``draw``, the overlay and its PNG."""
     with timings.scope("prior_build"):
         with timings.scope("fetch"):
             depth, cost = depth.cpu().numpy(), cost.cpu().numpy()
@@ -418,8 +422,9 @@ def prior_build(sp: ScenePaths, lp: LoadedProblem, image_id: int, depth,
         prior_normal, prior_w, mask, tris = build_planar_prior(
             lp.ref_cam, depth, cost, cfg.depth_min_scale * dmin,
             cfg.depth_max_scale * dmax, cfg.prior)
-        write_image(sp.result_dir(image_id) / "triangulation.png",
-                    draw_triangulation(lp.ref_image_np, tris))
+        with timings.scope("draw"):
+            write_image(sp.result_dir(image_id) / "triangulation.png",
+                        draw_triangulation(lp.ref_image_np, tris))
     return (prior_normal, prior_w, mask) if mask.any() else None
 
 

@@ -12,6 +12,8 @@ main.cpp:113-197):
    unmasked (main.cpp:168-181).
 
 numpy on the host, like the reference's host code; both camera models.
+``build_planar_prior`` opens the spans ``support`` (step 1),
+``triangulate`` (step 2) and ``raster`` (steps 3-5; ``utils/log.span``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 from acmmp_spherical_torch.config import PriorConfig
 from acmmp_spherical_torch.core.camera import Camera, SPHERE
 from acmmp_spherical_torch.io import native
+from acmmp_spherical_torch.utils.log import span
 
 
 def get_support_points(cost: np.ndarray, cfg: PriorConfig) -> np.ndarray:
@@ -101,35 +104,39 @@ def build_planar_prior(cam: Camera, depth: np.ndarray, cost: np.ndarray,
 
     depth = np.asarray(depth)
     H, W = depth.shape
-    tris = triangulate(get_support_points(np.asarray(cost), cfg))
-    if len(tris):
-        inb = ((tris[..., 0] >= 0) & (tris[..., 0] < W)
-               & (tris[..., 1] >= 0) & (tris[..., 1] < H)).all(axis=1)
-        tris = tris[inb]
-    planes = fit_planes(cam, depth, tris)
+    with span("support"):
+        points = get_support_points(np.asarray(cost), cfg)
+    with span("triangulate"):
+        tris = triangulate(points)
+    with span("raster"):
+        if len(tris):
+            inb = ((tris[..., 0] >= 0) & (tris[..., 0] < W)
+                   & (tris[..., 1] >= 0) & (tris[..., 1] < H)).all(axis=1)
+            tris = tris[inb]
+        planes = fit_planes(cam, depth, tris)
 
-    mask_idx = np.zeros((H, W), np.int32)
-    for t, tri in enumerate(tris):
-        cv2.fillPoly(mask_idx, [tri.astype(np.int32)], t + 1)
+        mask_idx = np.zeros((H, W), np.int32)
+        for t, tri in enumerate(tris):
+            cv2.fillPoly(mask_idx, [tri.astype(np.int32)], t + 1)
 
-    prior_normal = np.zeros((H, W, 3), np.float32)
-    prior_normal[..., 2] = -1.0
-    prior_w = np.zeros((H, W), np.float32)
-    mask = mask_idx > 0
-    if len(planes):
-        lab = mask_idx[mask] - 1
-        prior_normal[mask] = planes[lab, :3]
-        prior_w[mask] = planes[lab, 3]
-        # the prior depth -w / (n . r) must lie in the working range
-        ys, xs = np.nonzero(mask)
-        n = prior_normal[ys, xs]
-        w = prior_w[ys, xs]
-        r = _pixel_ray(cam, xs.astype(np.float32), ys.astype(np.float32))
-        denom = np.sum(n * r, axis=-1)
-        with np.errstate(divide="ignore", invalid="ignore"):
-            d = np.where(np.abs(denom) < 1e-6, -1.0, -w / denom)
-        ok = (d >= depth_min) & (d <= depth_max)
-        mask[ys[~ok], xs[~ok]] = False
+        prior_normal = np.zeros((H, W, 3), np.float32)
+        prior_normal[..., 2] = -1.0
+        prior_w = np.zeros((H, W), np.float32)
+        mask = mask_idx > 0
+        if len(planes):
+            lab = mask_idx[mask] - 1
+            prior_normal[mask] = planes[lab, :3]
+            prior_w[mask] = planes[lab, 3]
+            # the prior depth -w / (n . r) must lie in the working range
+            ys, xs = np.nonzero(mask)
+            n = prior_normal[ys, xs]
+            w = prior_w[ys, xs]
+            r = _pixel_ray(cam, xs.astype(np.float32), ys.astype(np.float32))
+            denom = np.sum(n * r, axis=-1)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                d = np.where(np.abs(denom) < 1e-6, -1.0, -w / denom)
+            ok = (d >= depth_min) & (d <= depth_max)
+            mask[ys[~ok], xs[~ok]] = False
     return prior_normal, prior_w, mask, np.asarray(tris).reshape(-1, 3, 2)
 
 

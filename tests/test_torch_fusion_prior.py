@@ -4,7 +4,8 @@
   patterned cost and on a depth/cost pair from a noisy field: support
   points, triangles, prior normals, offsets and mask equal (both are the
   same numpy and OpenCV code on the same float32 camera); the overlay of
-  ``draw_triangulation`` equal; the native support points equal the numpy
+  ``draw_triangulation`` equal, there and on a mesh, clipped and collapsed
+  triangles and none; the native support points equal the numpy
   fallback's;
 * ``joint_bilateral_upsample`` of a depth map and of a normal field (2x,
   25 taps) within 1e-5 relative (exp and the weight sums round differently
@@ -68,6 +69,39 @@ def test_planar_prior_matches_reference(scene, case):
         np.testing.assert_array_equal(a, b, err_msg=name)
     np.testing.assert_array_equal(TPR.draw_triangulation(images[0], t[3]),
                                   JPR.draw_triangulation(images[0], j[3]))
+
+
+def _overlay_triangles(case):
+    """Triangles for the overlay: a Delaunay mesh of random pixels (shared
+    edges drawn twice), triangles reaching off the image or collapsed to
+    a point or a line, and none."""
+    from scipy.spatial import Delaunay
+
+    rng = np.random.default_rng(5)
+    if case == "mesh":
+        pts = np.unique(np.stack([rng.integers(0, 96, 300),
+                                  rng.integers(0, 64, 300)], 1), axis=0)
+        return pts.astype(np.int32)[Delaunay(pts.astype(np.float64)).simplices]
+    if case == "clipped":
+        return np.array([[[-5, -5], [106, 3], [10, 71]],
+                         [[5, 5], [5, 5], [5, 5]],
+                         [[0, 63], [95, 63], [40, 63]],
+                         [[95, 0], [-1, -1], [96, 64]]],
+                        np.int32)
+    return np.zeros((0, 3, 2), np.int32)
+
+
+@pytest.mark.parametrize("case", ["mesh", "clipped", "empty"])
+def test_draw_triangulation_matches_reference(case):
+    """The overlay against the JAX package's, pixel for pixel, where an
+    edge leaves the image or a triangle collapses."""
+    from acmmp_spherical_tpu.pipeline import prior as JPR
+
+    img = np.random.default_rng(6).uniform(-20, 280, (64, 96)).astype(
+        np.float32)
+    tris = _overlay_triangles(case)
+    np.testing.assert_array_equal(TPR.draw_triangulation(img, tris),
+                                  JPR.draw_triangulation(img, tris))
 
 
 def test_support_points_native_matches_numpy(scene, monkeypatch):
