@@ -50,6 +50,33 @@ def read_dmb(path: str | os.PathLike) -> np.ndarray:
     return read_dmb_numpy(path)
 
 
+def read_shape(path: str | os.PathLike) -> tuple:
+    """The (h, w) or (h, w, nb) of a .dmb file, from its header alone."""
+    if native.available():
+        h, w, nb = native.dmb_header(path)
+    else:
+        with open(path, "rb") as f:
+            dtype_tag, h, w, nb = _HEADER.unpack(f.read(_HEADER.size))
+        if dtype_tag != _DMB_TYPE_FLOAT:
+            raise ValueError(f"{path}: unsupported dmb type {dtype_tag}")
+    return (h, w) if nb == 1 else (h, w, nb)
+
+
+def read_into(path: str | os.PathLike, out: np.ndarray) -> None:
+    """Read a .dmb file's data into ``out``, a C-contiguous float32 array
+    of the file's shape (``read_shape``): the reads of a load fill their
+    buffers in place."""
+    if out.dtype != np.float32 or not out.flags.c_contiguous:
+        raise ValueError("dmb data goes into a C-contiguous float32 array")
+    if native.available():
+        native.dmb_read_into(path, out)
+        return
+    with open(path, "rb") as f:
+        f.seek(_HEADER.size)
+        if f.readinto(memoryview(out).cast("B")) != out.nbytes:
+            raise IOError(f"{path}: shorter than its header says")
+
+
 def write_dmb(path: str | os.PathLike, array: np.ndarray) -> None:
     """Write an (h, w) or (h, w, nb) float32 array as .dmb."""
     array = np.ascontiguousarray(array, np.float32)
@@ -59,16 +86,25 @@ def write_dmb(path: str | os.PathLike, array: np.ndarray) -> None:
         write_dmb_numpy(path, array)
 
 
+def check_depth_shape(path, shape: tuple) -> tuple:
+    if len(shape) != 2:
+        raise ValueError(f"{path}: expected single-channel depth, got {shape}")
+    return shape
+
+
+def check_normal_shape(path, shape: tuple) -> tuple:
+    if len(shape) != 3 or shape[-1] != 3:
+        raise ValueError(f"{path}: expected 3-channel normals, got {shape}")
+    return shape
+
+
 def read_depth_dmb(path) -> np.ndarray:
     a = read_dmb(path)
-    if a.ndim != 2:
-        raise ValueError(
-            f"{path}: expected single-channel depth, got {a.shape}")
+    check_depth_shape(path, a.shape)
     return a
 
 
 def read_normal_dmb(path) -> np.ndarray:
     a = read_dmb(path)
-    if a.ndim != 3 or a.shape[-1] != 3:
-        raise ValueError(f"{path}: expected 3-channel normals, got {a.shape}")
+    check_normal_shape(path, a.shape)
     return a

@@ -79,20 +79,29 @@ def dmb_write(path, array: np.ndarray) -> None:
         raise IOError(f"dmb_write({path}) failed rc={rc}")
 
 
-def dmb_read(path) -> np.ndarray:
-    lib = load()
+def dmb_header(path) -> tuple[int, int, int]:
+    """(h, w, nb) from a .dmb file's header."""
     h, w, nb = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
-    rc = lib.dmb_read_header(str(path).encode(), ctypes.byref(h),
-                             ctypes.byref(w), ctypes.byref(nb))
+    rc = load().dmb_read_header(str(path).encode(), ctypes.byref(h),
+                                ctypes.byref(w), ctypes.byref(nb))
     if rc != 0:
         raise IOError(f"dmb_read_header({path}) failed rc={rc}")
-    out = np.empty(h.value * w.value * nb.value, np.float32)
-    rc = lib.dmb_read_data(str(path).encode(), out, out.size)
+    return h.value, w.value, nb.value
+
+
+def dmb_read_into(path, out: np.ndarray) -> None:
+    """A .dmb file's data into ``out`` (C-contiguous float32, the file's
+    size); the call releases the interpreter lock."""
+    rc = load().dmb_read_data(str(path).encode(), out.reshape(-1), out.size)
     if rc != 0:
         raise IOError(f"dmb_read_data({path}) failed rc={rc}")
-    shape = ((h.value, w.value) if nb.value == 1
-             else (h.value, w.value, nb.value))
-    return out.reshape(shape)
+
+
+def dmb_read(path) -> np.ndarray:
+    h, w, nb = dmb_header(path)
+    out = np.empty((h, w) if nb == 1 else (h, w, nb), np.float32)
+    dmb_read_into(path, out)
+    return out
 
 
 def ply_write(path, points, normals, colors) -> None:

@@ -214,9 +214,16 @@ def _imread(path, flag_name: str) -> np.ndarray:
     return img
 
 
+def decode_gray(path) -> np.ndarray:
+    """Grayscale uint8 image as decoded (OpenCV's decoder releases the
+    interpreter lock, so the pass runner decodes a view cluster in
+    threads)."""
+    return _imread(path, "IMREAD_GRAYSCALE")
+
+
 def load_image_gray(path) -> np.ndarray:
     """Grayscale float32 image in 0..255 (reference ACMMP.cpp:578-580)."""
-    return _imread(path, "IMREAD_GRAYSCALE").astype(np.float32)
+    return decode_gray(path).astype(np.float32)
 
 
 def load_image_color(path) -> np.ndarray:
@@ -227,7 +234,7 @@ def load_image_color(path) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def image_size(path: str) -> tuple[int, int]:
     """(height, width) of an image file, decoded once per process."""
-    return load_image_gray(path).shape
+    return decode_gray(path).shape
 
 
 def resize_linear(image: np.ndarray, width: int, height: int) -> np.ndarray:

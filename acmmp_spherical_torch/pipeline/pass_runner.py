@@ -8,11 +8,25 @@ Load and rescale the view cluster, move it to the device, run the
 write depth, normal and cost as ``.dmb``.  Pinhole and SPHERE scenes.
 Source views are padded to a scene-wide even count, as in the reference, so
 every problem of a scale has the same source axis.
+
+A load decodes its images and reads its ``.dmb`` files on one thread pool
+shared by every caller (OpenCV's decoder and the native reader release the
+interpreter lock), straight into the stacks it uploads; for a CUDA device
+those are page-locked and uploaded without the host waiting, so the pass's
+first kernels follow the copies on the stream (the few bytes of cameras,
+source mask and depth range are copied first, from pageable memory, since
+such a copy waits for the stream).  PyTorch's caching host
+allocator reuses a page-locked block only once the copies out of it have
+ended.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Optional, Sequence
 
 import numpy as np
@@ -24,7 +38,7 @@ from acmmp_spherical_torch.core.camera import (
 )
 from acmmp_spherical_torch.io import dmb
 from acmmp_spherical_torch.io.scene import (
-    Problem, ScenePaths, image_size, load_image_gray, read_camera_file,
+    Problem, ScenePaths, decode_gray, image_size, read_camera_file,
     resize_linear, write_image,
 )
 from acmmp_spherical_torch.ops import rectify as RT
@@ -41,6 +55,12 @@ from acmmp_spherical_torch.pipeline.prior import (
 from acmmp_spherical_torch.utils.log import Timings, get_logger, span
 
 log = get_logger(__name__)
+
+# bytes the loads have uploaded, by the route of their host buffer:
+# "pinned" (page-locked, not waited for) or "pageable" (waited for)
+LOAD_BYTES = {"pinned": 0, "pageable": 0}
+_LOAD_LOCK = threading.Lock()
+_READ_POOL: Optional[ThreadPoolExecutor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,26 +96,129 @@ def camera_to(cam: Camera, device) -> Camera:
         for f in dataclasses.fields(cam) if f.name != "model"})
 
 
+def _rescaled_hw(h: int, w: int, max_size: int) -> tuple[int, int]:
+    """(h, w) of an image after the downscale to ``max_size``
+    (ACMMP.cpp:605-643)."""
+    if w > max_size or h > max_size:
+        factor = min(max_size / w, max_size / h)
+        return round(h * factor), round(w * factor)
+    return h, w
+
+
 def _rescale(cam: Camera, h: int, w: int, max_size: int):
     """The camera of an (h, w) image after the downscale to ``max_size``
     (ACMMP.cpp:605-643), and the new (h, w)."""
     cam = scale_camera(cam, 1.0, 1.0, w, h)
-    if w > max_size or h > max_size:
-        factor = min(max_size / w, max_size / h)
-        nw, nh = round(w * factor), round(h * factor)
+    nh, nw = _rescaled_hw(h, w, max_size)
+    if (nh, nw) != (h, w):
         return scale_camera(cam, nw / w, nh / h, nw, nh), nh, nw
     return cam, h, w
 
 
-def _load_view(sp: ScenePaths, image_id: int, max_size: int):
-    """One view's grayscale image and host camera at ``max_size``
-    (ACMMP.cpp:576-643)."""
-    img = load_image_gray(sp.image_file(image_id))
-    cam = read_camera_file(sp.camera_file(image_id), device="cpu")
-    cam, nh, nw = _rescale(cam, *img.shape, max_size)
-    if (nh, nw) != img.shape:
-        img = resize_linear(img, nw, nh)
-    return img.astype(np.float32), cam
+def _read_pool() -> ThreadPoolExecutor:
+    """The loads' thread pool, one per process and shared by every caller
+    (a batched pass's loader thread and slots too), made at first use with
+    a thread per core."""
+    global _READ_POOL
+    with _LOAD_LOCK:
+        if _READ_POOL is None:
+            _READ_POOL = ThreadPoolExecutor(max_workers=os.cpu_count() or 1,
+                                            thread_name_prefix="pass-read")
+        return _READ_POOL
+
+
+def _run_all(jobs: Sequence) -> None:
+    """Call each of ``jobs`` (decodes, file reads and fills, which release
+    the interpreter lock) on the read pool, or in the calling thread where
+    there is one job.  Every job has ended before an error is raised, so
+    none writes into a buffer after."""
+    if len(jobs) <= 1:
+        for job in jobs:
+            job()
+        return
+    futures = [_read_pool().submit(job) for job in jobs]
+    wait(futures)
+    for f in futures:
+        f.result()
+
+
+def _host_buffer(shape, device: torch.device) -> torch.Tensor:
+    """An uninitialised float32 host buffer, page-locked for a CUDA
+    device."""
+    return torch.empty(tuple(shape), dtype=torch.float32,
+                       pin_memory=device.type == "cuda")
+
+
+def _fill(slot: np.ndarray, a: np.ndarray) -> None:
+    """``a`` into the top left of ``slot`` as float32, the rest zero."""
+    h, w = a.shape
+    slot[:h, :w] = a
+    slot[h:] = 0
+    slot[:h, w:] = 0
+
+
+def _read_view_into(slot: np.ndarray, path: str, hw: tuple,
+                    max_size: int) -> None:
+    """One view's grayscale pixels at ``max_size`` (ACMMP.cpp:576-643) into
+    its slot, the rest zero; ``hw`` is the file's (h, w) as ``image_size``
+    gave it, from which the stack and the camera were sized."""
+    img = decode_gray(path)
+    if img.shape != hw:
+        raise ValueError(f"{path}: {img.shape} pixels, {hw} when first read")
+    nh, nw = _rescaled_hw(*hw, max_size)
+    if (nh, nw) != hw:
+        img = resize_linear(img.astype(np.float32), nw, nh)
+    _fill(slot, img)
+
+
+def _stack_hw(shapes) -> tuple[int, int]:
+    """The (Hp, Wp) a stack pads its 2D arrays to; an absent array (None)
+    counts as the 1x1 zero map it stands for."""
+    shapes = [s or (1, 1) for s in shapes]
+    return (max((s[0] for s in shapes), default=1),
+            max((s[1] for s in shapes), default=1))
+
+
+def _read_depth_into(slot: np.ndarray, path, shape) -> None:
+    """A source's depth map into its slot of the depth stack, the rest
+    zero; an absent file (``shape`` None) leaves the slot zero."""
+    if shape is None:
+        slot[:] = 0
+    elif tuple(shape) == slot.shape:
+        dmb.read_into(path, slot)
+    else:
+        a = np.empty(shape, np.float32)
+        dmb.read_into(path, a)
+        _fill(slot, a)
+
+
+def _upload(buf: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``buf`` on ``device``, its bytes counted in ``LOAD_BYTES`` under its
+    route: a page-locked buffer by a copy the host does not wait for;
+    ``buf`` itself on a CPU device (nothing counted)."""
+    if device.type == "cpu":
+        return buf
+    route = "pinned" if buf.is_pinned() else "pageable"
+    with _LOAD_LOCK:
+        LOAD_BYTES[route] += buf.nbytes
+    return buf.to(device, non_blocking=route == "pinned")
+
+
+def _depth_file(path) -> tuple:
+    return path, dmb.check_depth_shape(path, dmb.read_shape(path))
+
+
+def _normal_file(path) -> tuple:
+    return path, dmb.check_normal_shape(path, dmb.read_shape(path))
+
+
+def _read_fields(files: Sequence, device: torch.device) -> list:
+    """The ``(path, shape)`` ``.dmb`` files read at once, each into a host
+    buffer of its own (``_host_buffer``)."""
+    bufs = [_host_buffer(shape, device) for _, shape in files]
+    _run_all([functools.partial(dmb.read_into, path, buf.numpy())
+              for (path, _), buf in zip(files, bufs)])
+    return bufs
 
 
 def _view_geometry(sp: ScenePaths, image_id: int, max_size: int):
@@ -278,69 +401,91 @@ def load_problem(sp: ScenePaths, problems: Sequence[Problem], idx: int,
                  multi_geometry: bool = False, device="cuda"
                  ) -> tuple[LoadedProblem, PatchMatchParams]:
     """The device inputs and pass parameters of one problem
-    (InuputInitialization analog)."""
+    (InuputInitialization analog).  The images and source depths are read
+    in the span ``read`` and moved to the device in ``upload``."""
     device = torch.device(device)
     problem = problems[idx]
     by_id = {p.ref_image_id: p for p in problems}
-    ref_img, ref_cam = _load_view(sp, problem.ref_image_id,
-                                  problem.cur_image_size)
-    src_imgs, src_cams = [], []
-    for sid in _src_ids(problem, cfg):
-        im, cm = _load_view(sp, sid, _cur_size(by_id, sid, problem))
-        src_imgs.append(im)
-        src_cams.append(cm)
-    n_src = len(src_imgs)
+    src_ids = _src_ids(problem, cfg)
+    views = [(problem.ref_image_id, problem.cur_image_size)] + [
+        (sid, _cur_size(by_id, sid, problem)) for sid in src_ids]
+    n_src = len(src_ids)
     # pad to the scene-wide source count rounded up to even: padded views
     # are masked but still computed, so no more than that
     scene_max = max((min(len(p.src_image_ids), cfg.max_src_views)
                      for p in problems), default=1)
     n_pad = max(1, -(-scene_max // 2) * 2)
+    files = [str(sp.image_file(i)) for i, _ in views]
+    # each view's camera and (h, w) after the rescale, from the size of its
+    # file (decoded once per process), so the stacks exist before a decode
+    fitted = [_rescale(read_camera_file(sp.camera_file(i), device="cpu"),
+                       *image_size(f), size)
+              for f, (i, size) in zip(files, views)]
+    ref_cam, *src_cams = [cam for cam, _, _ in fitted]
+    height, width = fitted[0][1:]
+    src_depths = None
+    with span("read"):
+        ref_image = _host_buffer((height, width), device)
+        src_images = _host_buffer(
+            (n_pad, *_stack_hw([hw for _, *hw in fitted[1:]])), device)
+        src = src_images.numpy()
+        src[n_src:] = 0
+        jobs = [functools.partial(_read_view_into, slot, f, image_size(f),
+                                  size)
+                for slot, f, (_, size) in zip(
+                    [ref_image.numpy(), *src], files, views)]
+        if geom:
+            # the previous pass's depth maps of every source view
+            # (ACMMP.cpp:653-678); the suffix follows multi_geometry
+            paths = [sp.depth_file(sid, geom=multi_geometry)
+                     for sid in src_ids]
+            shapes = [_depth_file(p)[1] if p.exists() else None
+                      for p in paths]
+            src_depths = _host_buffer((n_pad, *_stack_hw(shapes)), device)
+            deps = src_depths.numpy()
+            deps[n_src:] = 0
+            jobs += [functools.partial(_read_depth_into, deps[k], p, s)
+                     for k, (p, s) in enumerate(zip(paths, shapes))]
+        _run_all(jobs)
     src_valid = np.zeros(n_pad, bool)
     src_valid[:n_src] = True
     params = _path_params(cfg.patchmatch, cfg, problem, ref_cam, src_cams,
-                          ref_img.shape, device)
-    while len(src_imgs) < n_pad:
-        src_imgs.append(np.zeros((1, 1), np.float32))
-        src_cams.append(src_cams[0] if n_src else ref_cam)
+                          (height, width), device)
+    src_cams += [src_cams[0] if n_src else ref_cam] * (n_pad - n_src)
     if geom:
         params = params.with_geom(multi_geometry)
 
-    src_depths = None
-    if geom:
-        # the previous pass's depth maps of every source view
-        # (ACMMP.cpp:653-678); the suffix follows multi_geometry
-        deps = []
-        for sid in _src_ids(problem, cfg):
-            path = sp.depth_file(sid, geom=multi_geometry)
-            deps.append(dmb.read_depth_dmb(path) if path.exists()
-                        else np.zeros((1, 1), np.float32))
-        while len(deps) < n_pad:
-            deps.append(np.zeros((1, 1), np.float32))
-        src_depths = torch.from_numpy(_pad_stack(deps)).to(device)
-
     dmin, dmax = ref_cam.depth_range.numpy()
-    t = lambda a: torch.as_tensor(a, device=device)
-    inputs = PatchMatchInputs(
-        ref_image=t(ref_img), src_images=t(_pad_stack(src_imgs)),
-        ref_cam=camera_to(ref_cam, device),
-        src_cams=camera_to(stack_cameras(src_cams), device),
-        src_valid=t(src_valid),
-        depth_range=t(np.array([cfg.depth_min_scale * dmin,
-                                cfg.depth_max_scale * dmax], np.float32)),
-        src_depths=src_depths)
-    return LoadedProblem(inputs=inputs, ref_image_np=ref_img, ref_cam=ref_cam,
-                         height=ref_img.shape[0],
-                         width=ref_img.shape[1]), params
+    depth_range = np.array([cfg.depth_min_scale * dmin,
+                            cfg.depth_max_scale * dmax], np.float32)
+    with span("upload"):
+        t = lambda a: _upload(a, device)
+        # the small pageable copies first: each waits for the stream, so
+        # after the page-locked ones it would wait for those too
+        cams = camera_to(ref_cam, device), camera_to(
+            stack_cameras(src_cams), device)
+        valid = t(torch.from_numpy(src_valid))
+        working_range = t(torch.from_numpy(depth_range))
+        inputs = PatchMatchInputs(
+            ref_image=t(ref_image), src_images=t(src_images),
+            ref_cam=cams[0], src_cams=cams[1], src_valid=valid,
+            depth_range=working_range,
+            src_depths=None if src_depths is None else t(src_depths))
+    return LoadedProblem(inputs=inputs, ref_image_np=ref_image.numpy(),
+                         ref_cam=ref_cam, height=height,
+                         width=width), params
 
 
 def _load_seed(sp: ScenePaths, image_id: int, *, multi_geometry: bool,
                device):
     """The previous pass's fields, the seed of a geometric pass
     (CudaSpaceInitialization, ACMMP.cpp:753-785): (normal, depth)."""
-    depth = dmb.read_depth_dmb(sp.depth_file(image_id, geom=multi_geometry))
-    normal = dmb.read_normal_dmb(sp.normal_file(image_id))
-    return (torch.from_numpy(normal).to(device),
-            torch.from_numpy(depth).to(device))
+    with span("read"):
+        depth, normal = _read_fields(
+            [_depth_file(sp.depth_file(image_id, geom=multi_geometry)),
+             _normal_file(sp.normal_file(image_id))], device)
+    with span("upload"):
+        return _upload(normal, device), _upload(depth, device)
 
 
 def _load_hierarchy_seed(sp: ScenePaths, lp: LoadedProblem, image_id: int,
@@ -349,19 +494,21 @@ def _load_hierarchy_seed(sp: ScenePaths, lp: LoadedProblem, image_id: int,
     (ACMMP.cpp:788-844): the JBU pass between scales has written the
     full-resolution depths.dmb; the normals are still coarse and are
     upsampled here with the same guided filter (ACMMP.cu:713-779)."""
-    depth = dmb.read_depth_dmb(sp.depth_file(image_id, geom=False))
-    normal = dmb.read_normal_dmb(sp.normal_file(image_id))
     H, W = lp.height, lp.width
-    if depth.shape != (H, W):
-        # the JBU pass was skipped (scale ratio 1): the freshest depth
-        gpath = sp.depth_file(image_id, geom=True)
-        if gpath.exists():
-            d2 = dmb.read_depth_dmb(gpath)
-            if d2.shape == (H, W):
-                depth = d2
+    with span("read"):
+        depth = _depth_file(sp.depth_file(image_id, geom=False))
+        normal = _normal_file(sp.normal_file(image_id))
+        if depth[1] != (H, W):
+            # the JBU pass was skipped (scale ratio 1): the freshest depth
+            gpath = sp.depth_file(image_id, geom=True)
+            if gpath.exists() and _depth_file(gpath)[1] == (H, W):
+                depth = (gpath, (H, W))
+        depth, normal = _read_fields([depth, normal], device)
+    with span("upload"):
+        normal, depth = _upload(normal, device), _upload(depth, device)
+    if normal.shape[:2] == (H, W) and depth.shape == (H, W):
+        return normal, depth
     guide = torch.from_numpy(lp.ref_image_np).to(device)
-    normal = torch.from_numpy(normal).to(device)
-    depth = torch.from_numpy(depth).to(device)
     if normal.shape[:2] != (H, W):
         normal = joint_bilateral_upsample(normal, guide)
         normal = normal / torch.clamp(
@@ -377,6 +524,7 @@ def load_seeds(sp: ScenePaths, lp: LoadedProblem, image_id: int, *,
     """The seed fields of a geometric or hierarchy pass, as
     ``run_patchmatch`` keywords (a hierarchy pass's in the span
     ``hier_seed``); empty for a photometric pass."""
+    device = torch.device(device)
     if geom:
         fields = _load_seed(sp, image_id, multi_geometry=multi_geometry,
                             device=device)

@@ -8,6 +8,9 @@ device activity to them (``utils/profiling.by_span``), on the CPU.
   ``rng`` inside an ``init`` or a ``halfstep``, and ``fetch`` inside
   ``prior_build`` and ``write``; no name opens inside itself, and the
   spans' totals stay inside the call's latency.
+* ``load``'s ``read`` (the pool's decodes and reads) and ``upload`` open
+  inside it, once for the problem and once more for a geometric or
+  hierarchy pass's seed fields (inside ``hier_seed`` for the latter).
 * ``run_patchmatch``'s outputs are bit-identical with no ``Timings``
   current, with one current, and with one that has a hook.
 * ``run_pass_batched`` over two CPU slots: each slot thread's spans lie
@@ -28,6 +31,7 @@ torch = pytest.importorskip("torch")
 from acmmp_spherical_torch.config import (  # noqa: E402
     PatchMatchParams, PipelineConfig,
 )
+from acmmp_spherical_torch.io import dmb  # noqa: E402
 from acmmp_spherical_torch.io.scene import (  # noqa: E402
     ScenePaths, read_pair_file,
 )
@@ -136,6 +140,46 @@ def test_process_problem_spans(scene):
         assert 0.0 <= total <= latency, name
     top = ("load",) + ROUNDS + ("prior_build", "write")
     assert sum(timings.totals[k] for k in top) <= latency
+    (load,) = rec.named("load")
+    for name in ("read", "upload"):
+        (s,) = rec.named(name)
+        assert inside(s, load), name
+    assert rec.named("read")[0][3] <= rec.named("upload")[0][2]
+
+
+@pytest.mark.parametrize("kind", ["geom", "hierarchy"])
+def test_seed_loads_read_and_upload_inside_load(scene, kind):
+    """A seeded pass reads its seed fields in a second ``read`` and
+    ``upload`` inside ``load`` (a hierarchy pass's inside ``hier_seed``);
+    the load itself, not the pass, is what is checked."""
+    sp, problems = scene
+    cams = make_ring_of_cameras(N_VIEWS, width=W, height=H, focal=FOCAL,
+                                device="cpu")
+    _, depths, normals = render_scene(cams, CubeRoom(), W, H)
+    for p in problems:
+        i = p.ref_image_id
+        sp.result_dir(i).mkdir(parents=True, exist_ok=True)
+        for geom in (False, True):
+            dmb.write_dmb(sp.depth_file(i, geom=geom), depths[i])
+        dmb.write_dmb(sp.normal_file(i), normals[i])
+    rec = Recorder()
+    timings = Timings(hook=rec)
+    with timings.current(), timings.scope("load"):
+        lp, _ = pass_runner.load_problem(sp, problems, 1, cfg(),
+                                         geom=kind == "geom", device="cpu")
+        seeds = pass_runner.load_seeds(sp, lp, 1, geom=kind == "geom",
+                                       hierarchy=kind == "hierarchy",
+                                       multi_geometry=False, device="cpu")
+    assert set(seeds) == {"seed_normal_world", "seed_depth"}
+    (load,) = rec.named("load")
+    reads, uploads = rec.named("read"), rec.named("upload")
+    assert len(reads) == len(uploads) == 2
+    for s in reads + uploads:
+        assert inside(s, load)
+    if kind == "hierarchy":
+        (hier,) = rec.named("hier_seed")
+        assert inside(reads[1], hier) and inside(uploads[1], hier)
+        assert not inside(reads[0], hier)
 
 
 def test_spans_leave_outputs_alone(scene):
